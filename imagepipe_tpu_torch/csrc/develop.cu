@@ -28,67 +28,29 @@
 // The neighbour sums are accumulated in the reference's offset order, so
 // they equal the plain PyTorch form term for term.
 //
-// Numerics: the back end follows _finish_tile operation for operation.
-// cbrt and pow are expf(logf(x) * k) with the same guards, never cbrtf,
-// powf or the fast intrinsics: mismatched transcendental forms exceed
-// 10 LSB at 16-bit after the Lab^-1 cancellation. Divisions are IEEE.
-// Build without --use_fast_math. nvcc contracts a + b*c into FMA, as XLA
-// does; the 16-bit quantize scale uses __fmul_rn so that rounding to the
-// output grid sees the same product as the plain version.
+// Numerics: the back end is csrc/finish.cuh, shared with the scaled
+// kernel (develop_scaled.cu). nvcc contracts a + b*c into FMA, as XLA does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "finish.cuh"
+
 namespace {
 
-constexpr float kLabE = 216.0f / 24389.0f;
-constexpr float kLabK = 24389.0f / 27.0f;
-constexpr float kLabKE = kLabK * kLabE;
-constexpr float kXW = 0.95047f;
-constexpr float kYW = 1.0f;
-constexpr float kZW = 1.08883f;
-constexpr float kThird = (float)(1.0 / 3.0);
-constexpr float kInvGamma = (float)(1.0 / 2.4);
+using finish::to_float;
 
 struct DevelopArgs {
   const void* plane;        // uncropped sensor plane, row-major
   long long row_stride;     // elements per sensor row
   int crop_x, crop_y;       // crop origin on the sensor
   int height, width;        // cropped size = output size before flips
-  const float* scal;        // [8,16]: levels, WB, camera matrix, XYZ->RGB
-  const float* spline;      // [5, spline_stride]: xs, ys, c1, c2, c3
-  int spline_stride;
-  int n_knots;              // 0 = no tone curve
+  finish::Calib calib;
   const uint8_t* pattern;   // [ph, pw] cropped CFA colours (0..3)
   int ph, pw;
   int mono;
-  int linear;               // skip gamma (16-bit linear output)
   void* out;                // [3, height, width] u8 or u16
 };
-
-__device__ __forceinline__ float to_float(uint16_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_float(float v) { return v; }
-
-__device__ __forceinline__ float lab_f(float t) {
-  const float cb = expf(logf(fmaxf(t, 1e-30f)) * kThird);
-  return t > kLabE ? cb : (kLabK * t + 16.0f) / 116.0f;
-}
-
-__device__ __forceinline__ float lab_inv(float f) {
-  const float f3 = f * f * f;
-  return f3 > kLabE ? f3 : (116.0f * f - 16.0f) / kLabK;
-}
-
-__device__ __forceinline__ void store(uint8_t* o, float v) {
-  const float s = fminf(fmaxf(v * 256.0f, 0.0f), 255.0f);
-  *o = static_cast<uint8_t>(static_cast<int>(s));
-}
-
-__device__ __forceinline__ void store(uint16_t* o, float v) {
-  const float s = __fmul_rn(v, 65535.0f);
-  const float r = truncf(s + (s >= 0.0f ? 0.5f : -0.5f));
-  *o = static_cast<uint16_t>(static_cast<int>(fminf(fmaxf(r, 0.0f), 65535.0f)));
-}
 
 template <typename T, typename O>
 __global__ void __launch_bounds__(256) develop_kernel(const DevelopArgs a) {
@@ -98,9 +60,8 @@ __global__ void __launch_bounds__(256) develop_kernel(const DevelopArgs a) {
 
   const T* __restrict__ plane = static_cast<const T*>(a.plane)
       + static_cast<long long>(a.crop_y) * a.row_stride + a.crop_x;
-  const float* __restrict__ scal = a.scal;
-  const float black = scal[0];
-  const float range = scal[1];
+  const float black = a.calib.scal[0];
+  const float range = a.calib.scal[1];
 
   float rgbe[4];
   if (a.mono) {
@@ -134,72 +95,9 @@ __global__ void __launch_bounds__(256) develop_kernel(const DevelopArgs a) {
     for (int c = 0; c < 4; ++c) rgbe[c] = n[c] > 0.0f ? s[c] / n[c] : 0.0f;
   }
 
-  // WB multipliers (clipped to 1) and the 3x4 camera matrix -> XYZ.
-  float wb[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) wb[c] = fminf(rgbe[c] * scal[16 + c], 1.0f);
-  float xyz[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const float* m = scal + 16 * (2 + r);
-    float acc = wb[0] * m[0];
-    acc = acc + wb[1] * m[1];
-    acc = acc + wb[2] * m[2];
-    acc = acc + wb[3] * m[3];
-    xyz[r] = acc;
-  }
-
-  // XYZ -> Lab, re-ranged to [0, 1].
-  const float fx = lab_f(xyz[0] / kXW);
-  const float fy = lab_f(xyz[1] / kYW);
-  const float fz = lab_f(xyz[2] / kZW);
-  float L = (116.0f * fy - 16.0f) / 100.0f;
-  const float A = (500.0f * (fx - fy) + 127.0f) / 255.0f;
-  const float B = (200.0f * (fy - fz) + 127.0f) / 255.0f;
-
-  // Tone spline on L: interval by compare count, end clamps.
-  const int nk = a.n_knots;
-  if (nk > 0) {
-    const float* xs = a.spline;
-    const float* ys = a.spline + a.spline_stride;
-    const float* c1 = a.spline + 2 * a.spline_stride;
-    const float* c2 = a.spline + 3 * a.spline_stride;
-    const float* c3 = a.spline + 4 * a.spline_stride;
-    int idx = 0;
-    for (int k = 1; k < nk; ++k) idx += (L >= xs[k]) ? 1 : 0;
-    idx = min(max(idx, 0), nk - 2);
-    const float d = L - xs[idx];
-    float Lc = ys[idx] + c1[idx] * d + c2[idx] * d * d + c3[idx] * d * d * d;
-    if (L >= xs[nk - 1]) Lc = ys[nk - 1];
-    if (L <= xs[0]) Lc = ys[0];
-    L = Lc;
-  }
-
-  // Lab -> XYZ -> linear RGB (color_conversions.rs:58-65,171-191).
-  const float cl = L * 100.0f;
-  const float ca = A * 255.0f - 127.0f;
-  const float cb = B * 255.0f - 127.0f;
-  const float fy2 = (cl + 16.0f) / 116.0f;
-  const float fx2 = ca / 500.0f + fy2;
-  const float fz2 = fy2 - cb / 200.0f;
-  const float X = lab_inv(fx2) * kXW;
-  const float Y = (cl > kLabKE ? fy2 * fy2 * fy2 : cl / kLabK) * kYW;
-  const float Z = lab_inv(fz2) * kZW;
-
-  O* out = static_cast<O*>(a.out);
-  const long long plane_px = static_cast<long long>(a.height) * a.width;
-  const long long at = static_cast<long long>(y) * a.width + x;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const float* m = scal + 16 * (5 + r);
-    float ch = X * m[0] + Y * m[1] + Z * m[2];
-    if (!a.linear) {
-      ch = fminf(fmaxf(ch, 0.0f), 1.0f);
-      const float hi = 1.055f * expf(logf(fmaxf(ch, 1e-30f)) * kInvGamma) - 0.055f;
-      ch = ch < 0.0031308f ? ch * 12.92f : hi;
-    }
-    store(out + r * plane_px + at, ch);
-  }
+  finish::finish_pixel(rgbe, a.calib, static_cast<O*>(a.out),
+                       static_cast<long long>(a.height) * a.width,
+                       static_cast<long long>(y) * a.width + x);
 }
 
 template <typename T, typename O>
@@ -227,15 +125,15 @@ extern "C" int develop_launch(const void* plane, int in_f32, long long row_strid
   a.crop_y = crop_y;
   a.height = height;
   a.width = width;
-  a.scal = scal;
-  a.spline = spline;
-  a.spline_stride = spline_stride;
-  a.n_knots = n_knots;
+  a.calib.scal = scal;
+  a.calib.spline = spline;
+  a.calib.spline_stride = spline_stride;
+  a.calib.n_knots = n_knots;
+  a.calib.linear = linear;
   a.pattern = pattern;
   a.ph = ph;
   a.pw = pw;
   a.mono = mono;
-  a.linear = linear;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (height <= 0 || width <= 0) return static_cast<int>(cudaErrorInvalidValue);

@@ -8,9 +8,14 @@ numerics), as the XLA engine does beside the Pallas kernel in the JAX
 package. It is also the plain version the CUDA kernel is checked against
 (kernels/develop.py).
 
-Only full-size plans are ported: the resize paths (dem_path 'scaled',
-'fulldown', 'plaindown') come with ROADMAP A8. There is no row banding:
-it exists for the 16 GB TPU chip (engine.py:362-372 of the JAX package).
+Every dem_path is ported: 'full', and the resize paths of a maxwidth /
+maxheight below the image size: 'scaled' (the fused CFA demosaic +
+downscale), 'fulldown' (stencil demosaic, then a 4-plane downscale) and
+'plaindown' (mono and rgb). On CUDA the scaled-demosaic kernel
+(kernels/develop_scaled.py) takes the 'scaled' cfa plans in 'direct'
+numerics, and this engine is the executor of 'fulldown', 'plaindown', rgb
+and 'lut' plans. There is no row banding: it exists for the 16 GB TPU chip
+(engine.py:362-372 of the JAX package).
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from ._host import CFA
 from .kernels.demosaic_full import stencil_demosaic_planes
 from .ops.colorspaces import normalize_wbs
 from .ops.demosaic import minscale_for
-from .scaling import calculate_scale, scaling_size
+from .scaling import calculate_scale, scale_down_planar, scaling_size
 from .spline import SplineFunc, eval_spline_arrays
 
 __all__ = ["DevelopPlan", "make_develop_plan", "plan_from_jax",
@@ -126,7 +131,7 @@ def make_develop_plan(pipeline, out_bits: int = 8, numerics: str = "auto",
 def _demosaic_path(pipeline, mode, cfa, width, height):
     """(dem_path, dem_w, dem_h): the demosaic-stage size from the 3-pass
     size planning (pipeline.rs:317-338) and the path demosaic.rs:41-60
-    would take, as the JAX package plans it. Only 'full' is ported."""
+    would take, as the JAX package plans it."""
     settings = pipeline.globals.settings
     if not (settings.maxwidth or settings.maxheight):
         return "full", width, height
@@ -173,10 +178,8 @@ def _levels(plane, mins, ranges):
 def _develop_one(plan: DevelopPlan, plane: torch.Tensor, numerics: str):
     """plane: the full sensor [H0,W0] (cfa/mono) or [H0,W0,3] (rgb), u16 or
     f32 counts -> quantized planar [3, H', W']. Crop, levels (cfa/mono use
-    channel 0's levels, gofloat.rs:101-127), demosaic, then finish_planes."""
-    if plan.dem_path != "full":
-        raise NotImplementedError(
-            f"dem_path {plan.dem_path!r} (resize paths): ROADMAP A8")
+    channel 0's levels, gofloat.rs:101-127), demosaic and the plan's resize
+    (engine.py:212-226 of the JAX package), then finish_planes."""
     p = plan.params
     h, w = plan.height, plan.width
     plane = plane[plan.crop_y:plan.crop_y + h, plan.crop_x:plan.crop_x + w].float()
@@ -187,8 +190,18 @@ def _develop_one(plan: DevelopPlan, plane: torch.Tensor, numerics: str):
         v = _levels(plane, p["mins"][0], p["ranges"][0])
         if plan.mode == "mono":
             rgbe = [v, v, v, torch.zeros_like(v)]
+        elif plan.dem_path == "scaled":
+            # Fused demosaic + downscale (demosaic.rs:47-50).
+            rgbe = list(scale_down_planar(v[None], plan.dem_w, plan.dem_h, 4,
+                                          cfa=CFA(plan.cfa_name)))
         else:
             rgbe = stencil_demosaic_planes(v, plan.cfa_name, h, w)
+            if plan.dem_path == "fulldown":
+                rgbe = list(scale_down_planar(torch.stack(rgbe), plan.dem_w,
+                                              plan.dem_h, 4))
+    # Any resize of a non-CFA input (demosaic.rs:44-46).
+    if plan.dem_path == "plaindown":
+        rgbe = list(scale_down_planar(torch.stack(rgbe), plan.dem_w, plan.dem_h, 4))
     return finish_planes(rgbe, p, out_bits=plan.out_bits, linear=plan.linear,
                          apply_curve=plan.apply_curve, n_knots=plan.n_knots,
                          orientation_flips=plan.orientation_flips,

@@ -10,9 +10,10 @@ torch ops, like the JAX package applies them after its `pallas_call`.
   plain PyTorch (crop -> levels -> stencil demosaic -> finish_planes in
   'direct' numerics). A plane on a CUDA device launches the kernel, or the
   wrapper raises; nothing falls back.
-* The kernel is built on first use by nvcc from this package's sources
-  into `imagepipe_tpu_torch/build/`, keyed by a hash of the source and the
-  flags, and bound with ctypes. Importing this module builds nothing.
+* The kernel is built on first use by nvcc, with every other kernel of
+  `csrc/`, into one library under `imagepipe_tpu_torch/build/` keyed by a
+  hash of every source, header and flag (`build`), and bound with ctypes.
+  Importing this module builds nothing.
 * `LAUNCHES` counts kernel launches, so a run can show its main path went
   through the kernel.
 
@@ -38,8 +39,8 @@ from .._host import CFA
 from ..engine import _develop_one
 
 __all__ = ["develop", "develop_plain", "kernel_supported", "calib_tables",
-           "apply_flips", "build", "compare", "LAUNCHES", "MAX_PATTERN",
-           "MAX_LSB", "MAX_FLIP_FRACTION"]
+           "apply_flips", "build", "build_key", "check_plane", "compare", "LAUNCHES",
+           "MAX_PATTERN", "MAX_LSB", "MAX_FLIP_FRACTION"]
 
 # Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
@@ -53,10 +54,10 @@ MAX_FLIP_FRACTION = 0.02
 MAX_PATTERN = 48
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "develop.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+               "-std=c++17", "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -69,36 +70,66 @@ def _nvcc() -> str:
     for c in candidates:
         if c and os.path.isfile(c):
             return c
-    raise RuntimeError("nvcc not found: the develop kernel needs the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the develop kernels need the CUDA toolkit")
+
+
+def build_key(csrc: Path = _CSRC) -> str:
+    """Hash of the nvcc flags and of every `*.cu` and `*.cuh` under `csrc`
+    (names and bytes): an edit to any source or header changes it."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for f in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
 
 
 def build() -> Path:
-    """Compile csrc/develop.cu into a shared library unless a build of the
-    same source and flags exists; returns its path."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"develop_{key}.so"
+    """Compile every csrc/*.cu into one shared library unless a build of the
+    same sources, headers and flags exists; returns its path. One nvcc per
+    source, all started together, then one link."""
+    key = build_key()
+    lib = _BUILD_DIR / f"kernels_{key}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = _BUILD_DIR / f"develop_{key}.{os.getpid()}.tmp.so"
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+    nvcc = _nvcc()
+    tag = f"{key}.{os.getpid()}"
+    jobs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = _BUILD_DIR / f"{src.stem}_{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src.name}:\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    tmp = _BUILD_DIR / f"kernels_{tag}.tmp.so"
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
                           capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
 
 
 def _library():
+    """The kernels' library, built if needed, with both entry points bound."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.develop_launch
-        fn.restype = ctypes.c_int
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, ctypes.c_longlong, i, i, i, i, p, p, i, i,
-                       p, i, i, i, i, i, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.develop_launch.restype = i
+        lib.develop_launch.argtypes = [p, i, ll, i, i, i, i, p, p, i, i,
+                                       p, i, i, i, i, i, p, p]
+        lib.develop_scaled_launch.restype = i
+        lib.develop_scaled_launch.argtypes = [p, i, ll, i, i, i, i, p, p, p, p,
+                                              p, p, p, p, i, i, p, i, i, i, i,
+                                              p, p]
         _lib = lib
     return _lib
 
@@ -185,6 +216,22 @@ def compare(got, want) -> tuple[int, float]:
     return int(d.max()), float((d != 0).mean())
 
 
+def check_plane(plan, plane: torch.Tensor, kernel: str) -> None:
+    """Raise unless `plane` is what the kernels take: a contiguous [H0, W0]
+    u16 or f32 tensor that holds the plan's crop, for 8- or 16-bit output."""
+    if plane.dtype not in (torch.uint16, torch.float32):
+        raise TypeError(f"{kernel}: plane dtype {plane.dtype}, want uint16 or float32")
+    if plane.dim() != 2 or not plane.is_contiguous():
+        raise ValueError(f"{kernel}: plane must be a contiguous [H0, W0] tensor")
+    if (plan.crop_y + plan.height > plane.shape[0]
+            or plan.crop_x + plan.width > plane.shape[1]
+            or min(plan.crop_x, plan.crop_y) < 0):
+        raise ValueError(f"{kernel}: crop ({plan.crop_x},{plan.crop_y}) "
+                         f"{plan.width}x{plan.height} exceeds plane {tuple(plane.shape)}")
+    if plan.out_bits not in (8, 16):
+        raise ValueError(f"{kernel}: out_bits {plan.out_bits}")
+
+
 def develop_plain(plan, plane: torch.Tensor) -> torch.Tensor:
     """The kernel's computation in plain PyTorch, on the plane's device."""
     return _develop_one(plan, plane, "direct")
@@ -200,17 +247,7 @@ def develop(plan, plane: torch.Tensor) -> torch.Tensor:
     if not kernel_supported(plan):
         raise ValueError(f"develop kernel: unsupported plan (mode {plan.mode!r}, "
                          f"dem_path {plan.dem_path!r}, cfa {plan.cfa_name!r})")
-    if plane.dtype not in (torch.uint16, torch.float32):
-        raise TypeError(f"develop kernel: plane dtype {plane.dtype}, want uint16 or float32")
-    if plane.dim() != 2 or not plane.is_contiguous():
-        raise ValueError("develop kernel: plane must be a contiguous [H0, W0] tensor")
-    if (plan.crop_y + plan.height > plane.shape[0]
-            or plan.crop_x + plan.width > plane.shape[1]
-            or min(plan.crop_x, plan.crop_y) < 0):
-        raise ValueError(f"develop kernel: crop ({plan.crop_x},{plan.crop_y}) "
-                         f"{plan.width}x{plan.height} exceeds plane {tuple(plane.shape)}")
-    if plan.out_bits not in (8, 16):
-        raise ValueError(f"develop kernel: out_bits {plan.out_bits}")
+    check_plane(plan, plane, "develop kernel")
     scal, spline, pattern, n_knots = _device_tables(plan, plane.device)
     out = torch.empty((3, plan.height, plan.width), device=plane.device,
                       dtype=torch.uint8 if plan.out_bits == 8 else torch.uint16)

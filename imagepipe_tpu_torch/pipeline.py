@@ -1,18 +1,22 @@
 """Pipeline: the eight ops, their content hash and YAML serial, and the
-full-size develop of a RAW to 8-bit or 16-bit output.
+develop of a RAW to 8-bit or 16-bit output, at full size or as a
+thumbnail (settings.maxwidth / maxheight).
 
 Counterpart of `imagepipe_tpu/pipeline.py` (pipeline.rs). Settings, ops,
 hashing and serials are byte-identical to the JAX package's. What runs:
 
-* a RAW source with default geometry (no rotatecrop) develops at full
-  size in one pass: on CUDA, cfa and mono plans in 'direct' numerics
-  launch the develop kernel (kernels/develop.py); every other plan runs
-  the eager engine (engine.py) on the same device;
-* a raster source with default ops takes the numpy fast path.
+* a RAW source with default geometry (no rotatecrop) develops in one pass.
+  On CUDA, in 'direct' numerics, full-size cfa and mono plans launch the
+  develop kernel (kernels/develop.py) and 'scaled' cfa thumbnails the
+  scaled-demosaic kernel (kernels/develop_scaled.py). Every other plan
+  ('fulldown', 'plaindown', rgb, 'lut') runs the eager engine (engine.py)
+  on the same device;
+* a raster source with default ops takes the fast path; a downscale runs
+  the port's resampler on the pipeline's device.
 
-The staged per-op run with its stage cache (`cache=`, `run()`), a
-maxwidth / maxheight below the image size and a non-noop rotatecrop are
-later slices; they raise NotImplementedError naming their ROADMAP item.
+The staged per-op run with its stage cache (`cache=`, `run()`) and a
+non-noop rotatecrop are later slices; they raise NotImplementedError
+naming their ROADMAP item.
 
 A Pipeline develops on one device, chosen when it is made: `device=None`
 picks the first CUDA device when there is one, else the CPU.
@@ -32,9 +36,10 @@ import yaml
 from ._host import BufHasher, ImageSource, decode_file, hasher
 from .engine import develop_fused, make_develop_plan, planar_to_hwc
 from .kernels import develop as kdev
+from .kernels import develop_scaled as kdev_scaled
 from .ops import gofloat, demosaic, rotatecrop, colorspaces, curves, gamma, transform
 from .ops.base import STAGED
-from .scaling import scaling_size
+from .scaling import scale_down_srgb, scale_down_srgb16, scaling_size
 
 __all__ = [
     "SRGBImage", "SRGBImage16", "PipelineSettings", "PipelineGlobals",
@@ -235,10 +240,13 @@ class Pipeline:
     def _run_fused(self, out_bits: int) -> np.ndarray:
         plan = self._fused_plan_cached(out_bits)
         plane = self._sensor_plane()
-        if (plan.device.type == "cuda" and plan.numerics == "direct"
-                and kdev.kernel_supported(plan)):
-            with _timing("  fused develop (CUDA kernel)"):
-                return planar_to_hwc(kdev.develop(plan, plane))
+        if plan.device.type == "cuda" and plan.numerics == "direct":
+            if kdev.kernel_supported(plan):
+                with _timing("  fused develop (CUDA kernel)"):
+                    return planar_to_hwc(kdev.develop(plan, plane))
+            if kdev_scaled.scaled_supported(plan):
+                with _timing("  fused develop (CUDA scaled-demosaic kernel)"):
+                    return planar_to_hwc(kdev_scaled.develop_scaled(plan, plane))
         with _timing("  fused develop (eager engine)"):
             return planar_to_hwc(develop_fused(plan, plane))
 
@@ -247,9 +255,13 @@ class Pipeline:
         rgb = other.to_rgb8() if bits == 8 else other.to_rgb16()
         height, width = rgb.shape[:2]
         s = self.globals.settings
-        if scaling_size(width, height, s.maxwidth, s.maxheight) != (width, height):
-            raise NotImplementedError("downscaled raster output: ROADMAP A8")
-        return rgb
+        nwidth, nheight = scaling_size(width, height, s.maxwidth, s.maxheight)
+        if (nwidth, nheight) == (width, height):
+            return rgb
+        scale = scale_down_srgb if bits == 8 else scale_down_srgb16
+        with _timing("  raster downscale"):
+            src = torch.from_numpy(np.require(rgb, requirements=["C", "W"])).to(self.device)
+            return scale(src, nwidth, nheight).cpu().numpy()
 
     def _output(self, bits: int, cache):
         if cache is not None:

@@ -101,11 +101,19 @@ def test_plan_from_jax_carries_params():
 
 
 def test_resize_paths_not_ported():
+    """The thumbnail paths develop (tests/test_torch_scaled.py holds them to
+    the JAX package); the resize left unported is the rotated resample
+    behind rotatecrop, which raises naming its ROADMAP item."""
+    from imagepipe_tpu_torch.scaling import transform_buffer
+
     raw = synthetic_bayer(168, 112)
     p = Pipeline.new_from_source(ImageSource.from_raw(raw))
     p.globals.settings.maxwidth = 40
     plan = make_develop_plan(p, out_bits=8, numerics="direct")
     assert plan.dem_path == "scaled"
     tplan = tengine.plan_from_jax(plan, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tengine.develop_fused(tplan, torch.from_numpy(raw.data))
+    got = tengine.develop_fused(tplan, torch.from_numpy(raw.data))
+    _assert_contract(np.asarray(develop_fused(plan, raw.data)), got.numpy())
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        transform_buffer(torch.zeros((112, 168, 3)), 168, 112, (5, 2), (160, 12),
+                         (-3, 100), 40, 26, 3)

@@ -133,11 +133,9 @@ def test_size_planning_matches_jax(tmp_path, make, setup):
               "mode", "cfa_name", "n_knots"):
         assert getattr(got, k) == getattr(want, k), k
     assert tp.ops.content_hash() == jp.ops.content_hash()
-    if got.dem_path == "full":
-        _assert_contract(tp.output_8bit().data, jp.output_8bit().data)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tp.output_8bit()
+    got_img, want_img = tp.output_8bit(), jp.output_8bit()
+    assert (got_img.width, got_img.height) == (want_img.width, want_img.height)
+    _assert_contract(got_img.data, want_img.data)
 
 
 def test_raster_fastpath_matches_jax(tmp_path):
@@ -152,6 +150,48 @@ def test_raster_fastpath_matches_jax(tmp_path):
         want = jp.output_8bit() if bits == 8 else jp.output_16bit()
         got = tp.output_8bit() if bits == 8 else tp.output_16bit()
         np.testing.assert_array_equal(got.data, want.data)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("limits", [(96, 0), (0, 50), (80, 40)])
+def test_thumbnail_output_matches_jax(tmp_path, limits, bits):
+    raw = synthetic_bayer(240, 160, seed=9)
+    raw.orientation = Orientation.Rotate90
+    path = _dng(tmp_path, raw)
+    jp = jip.Pipeline.new_from_file(path)
+    tp = tip.Pipeline.new_from_file(path, device="cpu")
+    for p in (jp, tp):
+        p.globals.settings.maxwidth, p.globals.settings.maxheight = limits
+    want = jp.output_8bit() if bits == 8 else jp.output_16bit()
+    got = tp.output_8bit() if bits == 8 else tp.output_16bit()
+    assert (got.width, got.height) == (want.width, want.height)
+    assert got.width <= (limits[0] or 160) and got.height <= (limits[1] or 240)
+    _assert_contract(got.data, want.data)
+
+
+def test_simple_decode_8bit_thumbnail(bayer_dng):
+    got = tip.simple_decode_8bit(bayer_dng, maxwidth=40, device="cpu")
+    want = jip.simple_decode_8bit(bayer_dng, 40)
+    assert (got.width, got.height) == (want.width, want.height) == (40, 60)
+    _assert_contract(got.data, want.data)
+
+
+def test_raster_fastpath_downscale_matches_jax(tmp_path):
+    from PIL import Image
+
+    rgb = np.random.default_rng(7).integers(0, 256, (81, 123, 3), np.uint8)
+    path = str(tmp_path / "img.png")
+    Image.fromarray(rgb).save(path)
+    for bits in (8, 16):
+        jp = jip.Pipeline.new_from_file(path)
+        tp = tip.Pipeline.new_from_file(path, device="cpu")
+        for p in (jp, tp):
+            p.globals.settings.maxwidth = 50
+        want = jp.output_8bit() if bits == 8 else jp.output_16bit()
+        got = tp.output_8bit() if bits == 8 else tp.output_16bit()
+        assert (got.width, got.height) == (want.width, want.height) == (50, 32)
+        assert got.data.dtype == want.data.dtype
+        _assert_contract(got.data, want.data)
 
 
 def test_simple_decode_8bit(bayer_dng):
@@ -191,10 +231,6 @@ def test_out_of_slice_entry_points_raise(bayer_dng, tmp_path):
     for op in p.ops.all_ops():
         with pytest.raises(NotImplementedError, match="ROADMAP A5"):
             op.run(p.globals, None)
-    p.globals.settings.maxwidth = 64
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        p.output_8bit()
-    p.globals.settings.maxwidth = 0
     p.ops.rotatecrop.rotation = 0.1
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         p.output_16bit()
