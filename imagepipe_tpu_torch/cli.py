@@ -3,8 +3,9 @@
 Counterpart of `imagepipe_tpu/cli.py` (the reference's
 src/bin/converter.rs): `python -m imagepipe_tpu_torch.cli <file>
 [outfile]` -> quality-90 JPEG, default outfile `<file>.jpg`; exit 1 on
-usage error, exit 2 on processing error. Develops on the first CUDA
-device when there is one, else on the CPU.
+usage error, exit 2 on processing error (no CUDA device included).
+Develops on the first CUDA device; `main(argv, device="cpu")` develops on
+the CPU.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import sys
 
 
-def main(argv=None) -> int:
+def main(argv=None, device=None) -> int:
     argv = list(sys.argv if argv is None else argv)
     if len(argv) < 2:
         print("converter <file> [outfile]")
@@ -24,7 +25,7 @@ def main(argv=None) -> int:
     try:
         from . import simple_decode_8bit
 
-        decoded = simple_decode_8bit(file, 0, 0)
+        decoded = simple_decode_8bit(file, 0, 0, device)
         from PIL import Image
 
         Image.fromarray(decoded.data).save(outfile, format="JPEG", quality=90)

@@ -1,10 +1,15 @@
-// Full-size RAW develop for Hopper (sm_90a): one thread per output pixel.
+// Full-size RAW develop for Hopper (sm_90a): one thread per output pixel,
+// blockIdx.z the image of a batch.
 //
 // Replaces the TPU kernel imagepipe_tpu/kernels/develop_pallas.py::
 // _develop_kernel (with its back end _finish_tile and _emit): levels,
 // 3x3 neighbour-average demosaic, white balance + 3x4 camera matrix, Lab,
 // tone spline on L, Lab^-1, 3x3 matrix, sRGB gamma and quantize, in one
-// read of the sensor plane and one write of the planar output.
+// read of the sensor plane and one write of the planar output. One launch
+// develops B planes of one shape class, each with its own calibration: it
+// also replaces the batch-in-the-grid launcher
+// _develop_pallas_batchgrid_jit and the loop of single launches
+// _develop_pallas_batch_jit. A single image is the launch with B = 1.
 //
 // What bounds it. Memory traffic is the floor: at 24 MP it reads 2 B/px of
 // u16 sensor data and writes 3 B/px (6 B/px at 16-bit), 120 MB or 0.036 ms
@@ -41,15 +46,16 @@ namespace {
 using finish::to_float;
 
 struct DevelopArgs {
-  const void* plane;        // uncropped sensor plane, row-major
+  const void* plane;        // B uncropped sensor planes, row-major
   long long row_stride;     // elements per sensor row
+  long long plane_stride;   // elements between two images' planes
   int crop_x, crop_y;       // crop origin on the sensor
   int height, width;        // cropped size = output size before flips
-  finish::Calib calib;
-  const uint8_t* pattern;   // [ph, pw] cropped CFA colours (0..3)
+  finish::Calib calib;      // image 0's; image b's tables follow at b * stride
+  const uint8_t* pattern;   // [ph, pw] cropped CFA colours (0..3), shared
   int ph, pw;
   int mono;
-  void* out;                // [3, height, width] u8 or u16
+  void* out;                // [B, 3, height, width] u8 or u16
 };
 
 template <typename T, typename O>
@@ -57,11 +63,13 @@ __global__ void __launch_bounds__(256) develop_kernel(const DevelopArgs a) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= a.width || y >= a.height) return;
+  const int b = blockIdx.z;
+  const finish::Calib calib = finish::image_calib(a.calib, b);
 
-  const T* __restrict__ plane = static_cast<const T*>(a.plane)
+  const T* __restrict__ plane = static_cast<const T*>(a.plane) + b * a.plane_stride
       + static_cast<long long>(a.crop_y) * a.row_stride + a.crop_x;
-  const float black = a.calib.scal[0];
-  const float range = a.calib.scal[1];
+  const float black = calib.scal[0];
+  const float range = calib.scal[1];
 
   float rgbe[4];
   if (a.mono) {
@@ -95,32 +103,38 @@ __global__ void __launch_bounds__(256) develop_kernel(const DevelopArgs a) {
     for (int c = 0; c < 4; ++c) rgbe[c] = n[c] > 0.0f ? s[c] / n[c] : 0.0f;
   }
 
-  finish::finish_pixel(rgbe, a.calib, static_cast<O*>(a.out),
-                       static_cast<long long>(a.height) * a.width,
-                       static_cast<long long>(y) * a.width + x);
+  const long long plane_px = static_cast<long long>(a.height) * a.width;
+  finish::finish_pixel(rgbe, calib, static_cast<O*>(a.out) + 3 * b * plane_px,
+                       plane_px, static_cast<long long>(y) * a.width + x);
 }
 
 template <typename T, typename O>
-cudaError_t launch(const DevelopArgs& a, cudaStream_t stream) {
+cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
   const dim3 block(32, 8);
-  const dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
+  const dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y,
+                  batch);
   develop_kernel<T, O><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point for ctypes. in_f32: 0 = u16 plane, 1 = f32 plane.
+// C entry point for ctypes: develop `batch` planes [batch, H0, W0] (image b
+// at plane + b * plane_stride elements) with per-image calibration scal
+// [batch, 8, 16] and spline [batch, 5, spline_stride] into out
+// [batch, 3, height, width]. in_f32: 0 = u16 planes, 1 = f32 planes.
 // out_bits: 8 or 16. Returns the cudaError_t of the launch (0 = success).
-extern "C" int develop_launch(const void* plane, int in_f32, long long row_stride,
-                              int crop_x, int crop_y, int height, int width,
-                              const float* scal, const float* spline,
-                              int spline_stride, int n_knots,
-                              const uint8_t* pattern, int ph, int pw, int mono,
-                              int linear, int out_bits, void* out, void* stream) {
+extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
+                                    long long plane_stride, long long row_stride,
+                                    int crop_x, int crop_y, int height, int width,
+                                    const float* scal, const float* spline,
+                                    int spline_stride, int n_knots,
+                                    const uint8_t* pattern, int ph, int pw, int mono,
+                                    int linear, int out_bits, void* out, void* stream) {
   DevelopArgs a;
   a.plane = plane;
   a.row_stride = row_stride;
+  a.plane_stride = plane_stride;
   a.crop_x = crop_x;
   a.crop_y = crop_y;
   a.height = height;
@@ -136,11 +150,13 @@ extern "C" int develop_launch(const void* plane, int in_f32, long long row_strid
   a.mono = mono;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (height <= 0 || width <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (in_f32) {
-    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, s)
-                                          : launch<float, uint16_t>(a, s));
+  if (height <= 0 || width <= 0 || batch <= 0 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, s)
-                                        : launch<uint16_t, uint16_t>(a, s));
+  if (in_f32) {
+    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, batch, s)
+                                          : launch<float, uint16_t>(a, batch, s));
+  }
+  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, batch, s)
+                                        : launch<uint16_t, uint16_t>(a, batch, s));
 }

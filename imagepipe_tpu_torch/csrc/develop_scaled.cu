@@ -1,12 +1,16 @@
 // Thumbnail RAW develop for Hopper (sm_90a): the CFA-aware scaled demosaic
-// fused with the develop back end, one thread per output pixel, with no
-// full-resolution intermediate.
+// fused with the develop back end, one thread per output pixel, blockIdx.z
+// the image of a batch, with no full-resolution intermediate.
 //
 // Replaces the TPU kernels imagepipe_tpu/kernels/develop_scaled.py::
 // _scaled_kernel (:391) and ::_scaled_kernel_chunked (:500). They compute
 // one function; the chunked form exists only to fit deep-scale windows
-// into the TPU's VMEM, and this kernel serves every window size. Per
-// output pixel and colour c of the cropped CFA:
+// into the TPU's VMEM, and this kernel serves every window size. One
+// launch develops B planes of one shape class with shared geometry and
+// per-image calibration: it also replaces the batch-in-the-grid launcher
+// _develop_scaled_batchgrid_jit (:861) and the loop of single launches
+// _develop_scaled_batch_jit (:846). A single image is the launch with
+// B = 1. Per output pixel and colour c of the cropped CFA:
 //
 //   rgbe[c] = sum_w(v * w) / sum_w(w)   over the source window, 0 if empty
 //   v = min((raw - black) / range, 1)   (levels, gofloat.rs:122-130)
@@ -44,8 +48,9 @@ namespace {
 using finish::to_float;
 
 struct ScaledArgs {
-  const void* plane;        // uncropped sensor plane, row-major
+  const void* plane;        // B uncropped sensor planes, row-major
   long long row_stride;     // elements per sensor row
+  long long plane_stride;   // elements between two images' planes
   int crop_x, crop_y;       // crop origin on the sensor
   int nh, nw;               // output size before flips
   const int* from_x;        // [nw] first source column of each output column
@@ -54,10 +59,10 @@ struct ScaledArgs {
   const int* to_y;          // [nh]
   const float* dx2;         // [K_x, nw] dx^2 of window column kx
   const float* dy2;         // [K_y, nh] dy^2 of window row ky
-  finish::Calib calib;
-  const uint8_t* pattern;   // [ph, pw] cropped CFA colours (0..3)
+  finish::Calib calib;      // image 0's; image b's tables follow at b * stride
+  const uint8_t* pattern;   // [ph, pw] cropped CFA colours (0..3), shared
   int ph, pw;
-  void* out;                // [3, nh, nw] u8 or u16
+  void* out;                // [B, 3, nh, nw] u8 or u16
 };
 
 template <typename T, typename O>
@@ -65,11 +70,13 @@ __global__ void __launch_bounds__(256) scaled_kernel(const ScaledArgs a) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (col >= a.nw || row >= a.nh) return;
+  const int b = blockIdx.z;
+  const finish::Calib calib = finish::image_calib(a.calib, b);
 
-  const T* __restrict__ plane = static_cast<const T*>(a.plane)
+  const T* __restrict__ plane = static_cast<const T*>(a.plane) + b * a.plane_stride
       + static_cast<long long>(a.crop_y) * a.row_stride + a.crop_x;
-  const float black = a.calib.scal[0];
-  const float range = a.calib.scal[1];
+  const float black = calib.scal[0];
+  const float range = calib.scal[1];
   const int fx = a.from_x[col], nx = a.to_x[col] - fx + 1;
   const int fy = a.from_y[row], ny = a.to_y[row] - fy + 1;
 
@@ -100,32 +107,38 @@ __global__ void __launch_bounds__(256) scaled_kernel(const ScaledArgs a) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) rgbe[k] = counts[k] > 0.0f ? sums[k] / counts[k] : 0.0f;
 
-  finish::finish_pixel(rgbe, a.calib, static_cast<O*>(a.out),
-                       static_cast<long long>(a.nh) * a.nw,
-                       static_cast<long long>(row) * a.nw + col);
+  const long long plane_px = static_cast<long long>(a.nh) * a.nw;
+  finish::finish_pixel(rgbe, calib, static_cast<O*>(a.out) + 3 * b * plane_px,
+                       plane_px, static_cast<long long>(row) * a.nw + col);
 }
 
 template <typename T, typename O>
-cudaError_t launch(const ScaledArgs& a, cudaStream_t stream) {
+cudaError_t launch(const ScaledArgs& a, int batch, cudaStream_t stream) {
   const dim3 block(32, 8);
-  const dim3 grid((a.nw + block.x - 1) / block.x, (a.nh + block.y - 1) / block.y);
+  const dim3 grid((a.nw + block.x - 1) / block.x, (a.nh + block.y - 1) / block.y, batch);
   scaled_kernel<T, O><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point for ctypes. in_f32: 0 = u16 plane, 1 = f32 plane.
-// out_bits: 8 or 16. Returns the cudaError_t of the launch (0 = success).
-extern "C" int develop_scaled_launch(
-    const void* plane, int in_f32, long long row_stride, int crop_x, int crop_y,
-    int nh, int nw, const int* from_x, const int* to_x, const int* from_y,
-    const int* to_y, const float* dx2, const float* dy2, const float* scal,
-    const float* spline, int spline_stride, int n_knots, const uint8_t* pattern,
-    int ph, int pw, int linear, int out_bits, void* out, void* stream) {
+// C entry point for ctypes: develop `batch` planes [batch, H0, W0] (image b
+// at plane + b * plane_stride elements) with the shared geometry tables and
+// per-image calibration scal [batch, 8, 16], spline [batch, 5,
+// spline_stride] into out [batch, 3, nh, nw]. in_f32: 0 = u16 planes, 1 =
+// f32 planes. out_bits: 8 or 16. Returns the cudaError_t of the launch
+// (0 = success).
+extern "C" int develop_scaled_batch_launch(
+    const void* plane, int in_f32, int batch, long long plane_stride,
+    long long row_stride, int crop_x, int crop_y, int nh, int nw,
+    const int* from_x, const int* to_x, const int* from_y, const int* to_y,
+    const float* dx2, const float* dy2, const float* scal, const float* spline,
+    int spline_stride, int n_knots, const uint8_t* pattern, int ph, int pw,
+    int linear, int out_bits, void* out, void* stream) {
   ScaledArgs a;
   a.plane = plane;
   a.row_stride = row_stride;
+  a.plane_stride = plane_stride;
   a.crop_x = crop_x;
   a.crop_y = crop_y;
   a.nh = nh;
@@ -146,11 +159,13 @@ extern "C" int develop_scaled_launch(
   a.pw = pw;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nh <= 0 || nw <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (in_f32) {
-    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, s)
-                                          : launch<float, uint16_t>(a, s));
+  if (nh <= 0 || nw <= 0 || batch <= 0 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, s)
-                                        : launch<uint16_t, uint16_t>(a, s));
+  if (in_f32) {
+    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, batch, s)
+                                          : launch<float, uint16_t>(a, batch, s));
+  }
+  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, batch, s)
+                                        : launch<uint16_t, uint16_t>(a, batch, s));
 }

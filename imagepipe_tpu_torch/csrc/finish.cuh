@@ -61,6 +61,15 @@ struct Calib {
   int linear;               // skip gamma (16-bit linear output)
 };
 
+// Image b's calibration in a batch whose tables are scal [B, 8, 16] and
+// spline [B, 5, spline_stride], given image 0's.
+__device__ __forceinline__ Calib image_calib(const Calib& k, int b) {
+  Calib c = k;
+  c.scal = k.scal + b * 128;
+  c.spline = k.spline + static_cast<long long>(b) * 5 * k.spline_stride;
+  return c;
+}
+
 // Develop one pixel's RGBE and store its three channels at out[r*plane_px + at].
 template <typename O>
 __device__ __forceinline__ void finish_pixel(const float rgbe[4], const Calib& k,

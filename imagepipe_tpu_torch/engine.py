@@ -15,16 +15,20 @@ downscale), 'fulldown' (stencil demosaic, then a 4-plane downscale) and
 (kernels/develop_scaled.py) takes the 'scaled' cfa plans in 'direct'
 numerics, and this engine is the executor of 'fulldown', 'plaindown', rgb
 and 'lut' plans. There is no row banding: it exists for the 16 GB TPU chip
-(engine.py:362-372 of the JAX package).
+(engine.py:362-372 of the JAX package). `develop_batch_perimage` develops a
+batch of one shape class with per-image calibration, the batch engine's
+eager executor (parallel/batch.py).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
 
 from . import color as cc
-from ._host import CFA
+from .raw import CFA
 from .kernels.demosaic_full import stencil_demosaic_planes
 from .ops.colorspaces import normalize_wbs
 from .ops.demosaic import minscale_for
@@ -32,7 +36,8 @@ from .scaling import calculate_scale, scale_down_planar, scaling_size
 from .spline import SplineFunc, eval_spline_arrays
 
 __all__ = ["DevelopPlan", "make_develop_plan", "plan_from_jax",
-           "develop_fused", "finish_planes", "planar_to_hwc"]
+           "develop_fused", "develop_batch_perimage", "finish_planes",
+           "normalize_plane_np", "planar_to_hwc"]
 
 _PARAM_KEYS = ("mins", "ranges", "mul", "cmatrix", "rgbmatrix")
 _SPLINE_KEYS = ("spline_xs", "spline_ys", "spline_c1", "spline_c2", "spline_c3")
@@ -63,6 +68,32 @@ class DevelopPlan:
         self.dem_path = dem_path
         self.dem_w = dem_w
         self.dem_h = dem_h
+
+    def statics(self) -> dict:
+        """The static config, keyed as the JAX package's `statics()`: plans
+        with equal statics develop in one batch."""
+        return dict(cfa_name=self.cfa_name, height=self.height, width=self.width,
+                    crop_x=self.crop_x, crop_y=self.crop_y,
+                    mode=self.mode, out_bits=self.out_bits, linear=self.linear,
+                    apply_curve=self.apply_curve, n_knots=self.n_knots,
+                    orientation_flips=self.orientation_flips,
+                    numerics=self.numerics, dem_path=self.dem_path,
+                    dem_w=self.dem_w, dem_h=self.dem_h)
+
+    def to(self, device) -> "DevelopPlan":
+        """This plan with its params on `device` (itself if they are there);
+        to a CUDA device they are copied without blocking the host."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        twin = copy.copy(self)
+        twin.device = device
+        if device.type == "cuda":
+            twin.params = {k: v.pin_memory().to(device, non_blocking=True)
+                           for k, v in self.params.items()}
+        else:
+            twin.params = {k: v.to(device) for k, v in self.params.items()}
+        return twin
 
 
 def _tensors(arrays: dict, device) -> dict:
@@ -245,10 +276,34 @@ def normalize_plane(plan: DevelopPlan, plane: torch.Tensor) -> torch.Tensor:
     return plane
 
 
+def normalize_plane_np(plan: DevelopPlan, plane) -> np.ndarray:
+    """`normalize_plane` on a host array, for staging batches on the host."""
+    plane = np.asarray(plane)
+    if plan.mode == "rgb" and plane.ndim == 2:
+        return plane.reshape(plane.shape[0], -1, 3)
+    return plane
+
+
 def develop_fused(plan: DevelopPlan, plane: torch.Tensor) -> torch.Tensor:
     """Develop one sensor plane (a tensor on the plan's device) through the
     eager chain in the plan's numerics -> quantized planar [3, H', W']."""
     return _develop_one(plan, normalize_plane(plan, plane), plan.numerics)
+
+
+def develop_batch_perimage(plans, planes: torch.Tensor) -> torch.Tensor:
+    """Develop a batch of one shape class, planes[i] ([B, H0, W0] or
+    [B, H0, W0, 3] normalized planes on the plans' device) with plans[i]'s
+    own calibration (WB, levels, matrices, spline), through the eager chain
+    in the plans' numerics -> quantized planar [B, 3, H', W'].
+
+    Counterpart of `_develop_batch_perimage_jit` (a vmap of `_develop_one`
+    in the JAX package); here a Python loop of `_develop_one`, one image at
+    a time. It serves the plans the kernels do not take ('fulldown',
+    'plaindown', rgb, 'lut') on any device, and every plan on the CPU."""
+    statics = plans[0].statics()
+    if any(p.statics() != statics for p in plans[1:]):
+        raise ValueError("develop_batch_perimage: the plans of a batch must share their statics")
+    return torch.stack([_develop_one(p, planes[i], p.numerics) for i, p in enumerate(plans)])
 
 
 def planar_to_hwc(out: torch.Tensor) -> np.ndarray:

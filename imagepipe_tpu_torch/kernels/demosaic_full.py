@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._host import CFA, PATTERN_TILE
+from ..raw import CFA, PATTERN_TILE
 
 __all__ = ["OFFSETS_3X3", "neighbor_color_lookup", "stencil_demosaic_planes"]
 

@@ -5,17 +5,24 @@ plane)` runs the whole develop of one sensor plane in one kernel launch
 (csrc/develop.cu, which replaces the Pallas `_develop_kernel`) and returns
 the quantized planar [3, H', W'] output, EXIF flips applied afterwards as
 torch ops, like the JAX package applies them after its `pallas_call`.
+`develop_batch(plans, planes)` develops B planes of one shape class, each
+with its own calibration, in one launch of the same kernel (the image is
+blockIdx.z), in place of `_develop_pallas_batchgrid_jit` and the loop
+`_develop_pallas_batch_jit`; `develop` is its B = 1 case.
 
-* A plane on the CPU goes to `develop_plain`, the same develop written in
-  plain PyTorch (crop -> levels -> stencil demosaic -> finish_planes in
-  'direct' numerics). A plane on a CUDA device launches the kernel, or the
-  wrapper raises; nothing falls back.
+* Planes on the CPU go to the plain versions, `develop_plain` and
+  `develop_batch_plain`: the same develop written in plain PyTorch (crop ->
+  levels -> stencil demosaic -> finish_planes in 'direct' numerics). Planes
+  on a CUDA device launch the kernel, or the wrapper raises; nothing falls
+  back.
 * The kernel is built on first use by nvcc, with every other kernel of
   `csrc/`, into one library under `imagepipe_tpu_torch/build/` keyed by a
   hash of every source, header and flag (`build`), and bound with ctypes.
   Importing this module builds nothing.
-* `LAUNCHES` counts kernel launches, so a run can show its main path went
-  through the kernel.
+* `LAUNCHES` counts the launches of `develop` and `BATCH_LAUNCHES` those of
+  `develop_batch`, so a run can show its main path went through the kernel.
+* Host tables reach the card from pinned memory without blocking the host
+  (`upload`), so a caller can stage the next batch while this one runs.
 
 Numerics: nvcc contracts a + b*c into FMA, as XLA does, and the plain
 version's separate tensor ops do not. So kernel and plain version are held
@@ -35,15 +42,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .._host import CFA
+from ..raw import CFA
 from ..engine import _develop_one
 
-__all__ = ["develop", "develop_plain", "kernel_supported", "calib_tables",
-           "apply_flips", "build", "build_key", "check_plane", "compare", "LAUNCHES",
-           "MAX_PATTERN", "MAX_LSB", "MAX_FLIP_FRACTION"]
+__all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
+           "kernel_supported", "calib_tables", "batch_tables", "upload", "apply_flips",
+           "build", "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
+           "BATCH_LAUNCHES", "MAX_PATTERN", "MAX_LSB", "MAX_FLIP_FRACTION"]
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches by `develop` and by `develop_batch` since import (or since
+# a caller reset them to 0).
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
 
 # The cross-path contract: quantized outputs differ by at most 1 LSB, on
 # fewer than 2% of values.
@@ -123,13 +133,13 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.develop_launch.restype = i
-        lib.develop_launch.argtypes = [p, i, ll, i, i, i, i, p, p, i, i,
-                                       p, i, i, i, i, i, p, p]
-        lib.develop_scaled_launch.restype = i
-        lib.develop_scaled_launch.argtypes = [p, i, ll, i, i, i, i, p, p, p, p,
-                                              p, p, p, p, i, i, p, i, i, i, i,
-                                              p, p]
+        lib.develop_batch_launch.restype = i
+        lib.develop_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i, p, p, i, i,
+                                             p, i, i, i, i, i, p, p]
+        lib.develop_scaled_batch_launch.restype = i
+        lib.develop_scaled_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i,
+                                                    p, p, p, p, p, p, p, p, i, i,
+                                                    p, i, i, i, i, p, p]
         _lib = lib
     return _lib
 
@@ -170,6 +180,23 @@ def calib_tables(plan):
     return scal, spline, n_knots
 
 
+def upload(array, device) -> torch.Tensor:
+    """A host array as a tensor on `device`. To a CUDA device it is copied
+    from pinned memory without blocking the host, ordered on the device's
+    current stream (torch keeps the pinned block until the copy is done)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _pattern(plan) -> np.ndarray:
+    """The cropped CFA colours [ph, pw] u8 the kernels take (1x1 for mono)."""
+    if plan.mode == "mono":
+        return np.zeros((1, 1), np.uint8)
+    return CFA(plan.cfa_name).pattern.astype(np.uint8)
+
+
 def _device_tables(plan, device):
     """calib_tables and the cropped CFA pattern on `device`, memoized on the
     plan: repeated develops of one plan upload them once."""
@@ -177,14 +204,19 @@ def _device_tables(plan, device):
     if hit is not None and hit[0] == device:
         return hit[1]
     scal, spline, n_knots = calib_tables(plan)
-    if plan.mode == "mono":
-        pattern = np.zeros((1, 1), np.uint8)
-    else:
-        pattern = CFA(plan.cfa_name).pattern.astype(np.uint8)
-    tables = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                   for a in (scal, spline, pattern)) + (n_knots,)
+    tables = tuple(upload(a, device) for a in (scal, spline, _pattern(plan))) + (n_knots,)
     plan._cuda_tables = (device, tables)
     return tables
+
+
+def batch_tables(plans, device):
+    """(scal [B,8,16], spline [B,5,S], pattern, n_knots) on `device`: each
+    image's own calibration, stacked, and the CFA pattern the batch shares
+    (the plans share their statics)."""
+    tables = [calib_tables(p) for p in plans]
+    scal = upload(np.stack([t[0] for t in tables]), device)
+    spline = upload(np.stack([t[1] for t in tables]), device)
+    return scal, spline, upload(_pattern(plans[0]), device), tables[0][2]
 
 
 def apply_flips(out: torch.Tensor, orientation_flips) -> torch.Tensor:
@@ -232,9 +264,63 @@ def check_plane(plan, plane: torch.Tensor, kernel: str) -> None:
         raise ValueError(f"{kernel}: out_bits {plan.out_bits}")
 
 
+def check_batch(plans, planes: torch.Tensor, kernel: str) -> None:
+    """Raise unless `planes` is what a batched launch takes for `plans`: one
+    contiguous [B, H0, W0] u16 or f32 tensor, one plan per plane, and every
+    plan with the same statics (one shape class)."""
+    if planes.dim() != 3 or not planes.is_contiguous():
+        raise ValueError(f"{kernel}: planes must be one contiguous [B, H0, W0] tensor")
+    if not plans or len(plans) != planes.shape[0]:
+        raise ValueError(f"{kernel}: {len(plans)} plans for {planes.shape[0]} planes")
+    statics = plans[0].statics()
+    if any(p.statics() != statics for p in plans[1:]):
+        raise ValueError(f"{kernel}: the plans of a batch must share their statics")
+    check_plane(plans[0], planes[0], kernel)
+
+
+def _element(planes: torch.Tensor) -> int:
+    return int(planes.dtype == torch.float32)
+
+
+def _out(plan, batch: int, height: int, width: int, device) -> torch.Tensor:
+    return torch.empty((batch, 3, height, width), device=device,
+                       dtype=torch.uint8 if plan.out_bits == 8 else torch.uint16)
+
+
+def _launch(plan, planes: torch.Tensor, scal, spline, pattern, n_knots) -> torch.Tensor:
+    """One launch over planes [B, H0, W0] -> unflipped [B, 3, H, W]."""
+    out = _out(plan, planes.shape[0], plan.height, plan.width, planes.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with torch.cuda.device(planes.device):
+        rc = lib.develop_batch_launch(
+            planes.data_ptr(), _element(planes), planes.shape[0], planes.stride(0),
+            planes.stride(1), plan.crop_x, plan.crop_y, plan.height, plan.width,
+            scal.data_ptr(), spline.data_ptr(), spline.shape[-1], n_knots,
+            pattern.data_ptr(), pattern.shape[0], pattern.shape[1],
+            int(plan.mode == "mono"), int(plan.linear), plan.out_bits,
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"develop kernel launch failed: cudaError {rc}")
+    return out
+
+
+def _check_kernel(plan, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"develop kernel: unsupported device {device}")
+    if not kernel_supported(plan):
+        raise ValueError(f"develop kernel: unsupported plan (mode {plan.mode!r}, "
+                         f"dem_path {plan.dem_path!r}, cfa {plan.cfa_name!r})")
+
+
 def develop_plain(plan, plane: torch.Tensor) -> torch.Tensor:
     """The kernel's computation in plain PyTorch, on the plane's device."""
     return _develop_one(plan, plane, "direct")
+
+
+def develop_batch_plain(plans, planes: torch.Tensor) -> torch.Tensor:
+    """`develop_batch` in plain PyTorch: a loop of `develop_plain`."""
+    return torch.stack([develop_plain(p, planes[i]) for i, p in enumerate(plans)])
 
 
 def develop(plan, plane: torch.Tensor) -> torch.Tensor:
@@ -242,27 +328,23 @@ def develop(plan, plane: torch.Tensor) -> torch.Tensor:
     full-size cfa/mono plan -> quantized planar [3, H', W'] u8/u16."""
     if plane.device.type == "cpu":
         return develop_plain(plan, plane)
-    if plane.device.type != "cuda":
-        raise ValueError(f"develop kernel: unsupported device {plane.device}")
-    if not kernel_supported(plan):
-        raise ValueError(f"develop kernel: unsupported plan (mode {plan.mode!r}, "
-                         f"dem_path {plan.dem_path!r}, cfa {plan.cfa_name!r})")
+    _check_kernel(plan, plane.device)
     check_plane(plan, plane, "develop kernel")
-    scal, spline, pattern, n_knots = _device_tables(plan, plane.device)
-    out = torch.empty((3, plan.height, plan.width), device=plane.device,
-                      dtype=torch.uint8 if plan.out_bits == 8 else torch.uint16)
-    lib = _library()
-    stream = torch.cuda.current_stream(plane.device).cuda_stream
-    with torch.cuda.device(plane.device):
-        rc = lib.develop_launch(
-            plane.data_ptr(), int(plane.dtype == torch.float32), plane.stride(0),
-            plan.crop_x, plan.crop_y, plan.height, plan.width,
-            scal.data_ptr(), spline.data_ptr(), spline.shape[1], n_knots,
-            pattern.data_ptr(), pattern.shape[0], pattern.shape[1],
-            int(plan.mode == "mono"), int(plan.linear), plan.out_bits,
-            out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"develop kernel launch failed: cudaError {rc}")
+    out = _launch(plan, plane[None], *_device_tables(plan, plane.device))
     global LAUNCHES
     LAUNCHES += 1
-    return apply_flips(out, plan.orientation_flips)
+    return apply_flips(out[0], plan.orientation_flips)
+
+
+def develop_batch(plans, planes: torch.Tensor) -> torch.Tensor:
+    """Develop B uncropped sensor planes [B, H0, W0] (u16 or f32) of one
+    shape class, plans[i] calibrating planes[i], in one launch -> quantized
+    planar [B, 3, H', W'] u8/u16."""
+    if planes.device.type == "cpu":
+        return develop_batch_plain(plans, planes)
+    check_batch(plans, planes, "develop kernel")
+    _check_kernel(plans[0], planes.device)
+    out = _launch(plans[0], planes, *batch_tables(plans, planes.device))
+    global BATCH_LAUNCHES
+    BATCH_LAUNCHES += 1
+    return apply_flips(out, plans[0].orientation_flips)

@@ -11,7 +11,7 @@ chain at once (engine.py, kernels/develop.py).
 
 from __future__ import annotations
 
-from .._host import BufHasher
+from ..hasher import BufHasher
 
 __all__ = ["ImageOp", "STAGED"]
 

@@ -13,7 +13,8 @@ import math
 import numpy as np
 
 from .base import ImageOp
-from .._host import hasher, temp_to_xyz, xyz_to_temp
+from .. import hasher
+from ..cct import temp_to_xyz, xyz_to_temp
 from .. import color as cc
 
 __all__ = ["OpToLab", "OpFromLab", "normalize_wbs"]

@@ -8,7 +8,7 @@ spline is fitted; the develop plan fits it (engine.make_develop_plan).
 from __future__ import annotations
 
 from .base import ImageOp
-from .._host import hasher
+from .. import hasher
 from ..spline import SplineFunc
 
 __all__ = ["OpBaseCurve"]

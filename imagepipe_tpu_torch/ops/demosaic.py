@@ -8,7 +8,7 @@ scale of the fused scaled demosaic that size planning uses.
 from __future__ import annotations
 
 from .base import ImageOp
-from .._host import hasher
+from .. import hasher
 
 __all__ = ["OpDemosaic", "minscale_for"]
 

@@ -8,7 +8,7 @@ inside the develop (engine.py, kernels/develop.py).
 from __future__ import annotations
 
 from .base import ImageOp
-from .._host import hasher
+from .. import hasher
 
 __all__ = ["OpGoFloat"]
 

@@ -14,7 +14,7 @@ import logging
 import numpy as np
 
 from .base import ImageOp
-from .._host import hasher
+from .. import hasher
 
 __all__ = ["OpRotateCrop"]
 

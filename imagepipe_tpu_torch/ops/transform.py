@@ -10,7 +10,8 @@ from __future__ import annotations
 import enum
 
 from .base import ImageOp
-from .._host import Orientation, hasher
+from .. import hasher
+from ..raw import Orientation
 
 __all__ = ["Rotation", "OpTransform"]
 

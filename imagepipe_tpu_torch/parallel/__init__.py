@@ -1,14 +1,12 @@
 """Batched and multi-device develop (counterpart of
-`imagepipe_tpu/parallel/`): not ported yet."""
+`imagepipe_tpu/parallel/`): the batch engine. The width-sharded and
+multi-host engines are not ported yet."""
 
 from __future__ import annotations
 
-__all__ = ["BatchEngine", "MultiHostBatchEngine"]
+from .batch import BatchEngine, BatchError, default_decode_workers
 
-
-class BatchEngine:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("BatchEngine: ROADMAP A6")
+__all__ = ["BatchEngine", "BatchError", "MultiHostBatchEngine", "default_decode_workers"]
 
 
 class MultiHostBatchEngine:

@@ -19,7 +19,7 @@ non-noop rotatecrop are later slices; they raise NotImplementedError
 naming their ROADMAP item.
 
 A Pipeline develops on one device, chosen when it is made: `device=None`
-picks the first CUDA device when there is one, else the CPU.
+is `default_device()`, the first CUDA device; the CPU only when asked for.
 """
 
 from __future__ import annotations
@@ -33,7 +33,10 @@ import numpy as np
 import torch
 import yaml
 
-from ._host import BufHasher, ImageSource, decode_file, hasher
+from . import hasher
+from .decode import decode_file
+from .hasher import BufHasher
+from .sources import ImageSource
 from .engine import develop_fused, make_develop_plan, planar_to_hwc
 from .kernels import develop as kdev
 from .kernels import develop_scaled as kdev_scaled
@@ -52,8 +55,12 @@ SERIAL_VERSION = 0
 
 
 def default_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA device. Raises when there is none: the port runs on
+    the CPU only where a caller asks for it (`device="cpu"`)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("imagepipe_tpu_torch: no CUDA device; pass device='cpu' "
+                           "to develop on the CPU")
+    return torch.device("cuda", 0)
 
 
 @contextmanager
@@ -164,6 +171,7 @@ class Pipeline:
 
     @staticmethod
     def new_from_file(path, device=None) -> "Pipeline":
+        device = default_device() if device is None else device
         with _timing("total new_from_file()"):
             img = decode_file(path)
         return Pipeline.new_from_source(img, device)

@@ -177,11 +177,12 @@ def test_pipeline_routing_on_card(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     import imagepipe_tpu_torch as tip
-    from imagepipe_tpu_torch import _host
+    from imagepipe_tpu_torch import raw as traw
+    from imagepipe_tpu_torch.sources import ImageSource as PortSource
 
-    make = {"bayer": _host.synthetic_bayer, "xtrans": _host.synthetic_xtrans,
-            "mono": _host.synthetic_mono, "rgb": _host.synthetic_linear}[kind]
-    src = _host.ImageSource.from_raw(make(168, 112))
+    make = {"bayer": traw.synthetic_bayer, "xtrans": traw.synthetic_xtrans,
+            "mono": traw.synthetic_mono, "rgb": traw.synthetic_linear}[kind]
+    src = PortSource.from_raw(make(168, 112))
     card = tip.Pipeline.new_from_source(src, device="cuda")
     cpu = tip.Pipeline.new_from_source(src, device="cpu")
     before = kdev.LAUNCHES
@@ -189,3 +190,30 @@ def test_pipeline_routing_on_card(kind):
     assert kdev.LAUNCHES == before + (0 if kind == "rgb" else 1)
     # The CPU pipeline runs 'lut' numerics, the card 'direct': <= 1 LSB apart.
     _assert_contract(got, cpu.output_8bit().data)
+
+
+def _wb(i):
+    return (1.0 + 0.15 * i, 1.0, 2.0 + 0.3 * i, float("nan"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bayer8", "bayer16", "xtrans8", "rotate90", "float_plane"])
+def test_batch_kernel_matches_single_launches_on_card(case):
+    """One batched launch equals B single launches bit for bit, each image
+    with its own calibration, and holds the plain version's contract."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    make, bits = CASES.get(case, (lambda: synthetic_bayer(168, 112), 8))
+    raws = [make() for _ in range(3)]
+    for i, raw in enumerate(raws):
+        raw.wb_coeffs = _wb(i)
+    plans = [plan_from_jax(_jax_plan(raw, bits), "cuda") for raw in raws]
+    planes = torch.from_numpy(np.stack([raw.data for raw in raws])).cuda()
+    before = kdev.BATCH_LAUNCHES
+    got = kdev.develop_batch(plans, planes)
+    torch.cuda.synchronize()
+    assert kdev.BATCH_LAUNCHES == before + 1
+    for i, plan in enumerate(plans):
+        assert torch.equal(got[i], kdev.develop(plan, planes[i]))
+    _assert_contract(got, kdev.develop_batch_plain(plans, planes))
+    assert not torch.equal(got[0], got[2])

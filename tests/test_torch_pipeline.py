@@ -204,17 +204,17 @@ def test_cli_on_dng_and_png(tmp_path, bayer_dng, capsys):
     from PIL import Image
 
     out = str(tmp_path / "out.jpg")
-    assert cli.main(["converter", bayer_dng, out]) == 0
+    assert cli.main(["converter", bayer_dng, out], device="cpu") == 0
     with Image.open(out) as im:
         want = jip.simple_decode_8bit(bayer_dng)
         assert im.size == (want.width, want.height)
     png = str(tmp_path / "in.png")
     Image.fromarray(np.full((20, 30, 3), 128, np.uint8)).save(png)
-    assert cli.main(["converter", png]) == 0
+    assert cli.main(["converter", png], device="cpu") == 0
     with Image.open(png + ".jpg") as im:
         assert im.size == (30, 20)
-    assert cli.main(["converter"]) == 1
-    assert cli.main(["converter", str(tmp_path / "missing.dng")]) == 2
+    assert cli.main(["converter"], device="cpu") == 1
+    assert cli.main(["converter", str(tmp_path / "missing.dng")], device="cpu") == 2
 
 
 def test_out_of_slice_entry_points_raise(bayer_dng, tmp_path):
@@ -240,10 +240,13 @@ def test_out_of_slice_entry_points_raise(bayer_dng, tmp_path):
     r.ops.basecurve.exposure = 0.5
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         r.output_8bit()
-    for cls, item in ((BatchEngine, "A6"), (MultiHostBatchEngine, "A11"),
-                      (EditSession, "A10"), (RenderService, "A10")):
+    for cls, item in ((MultiHostBatchEngine, "A11"), (EditSession, "A10"),
+                      (RenderService, "A10")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             cls()
+    # The batch engine is ported; its width-sharded axis is not.
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        BatchEngine(devices=["cpu"], spatial=2)
 
 
 def test_sensor_plane_cache_is_the_ports_own(bayer_dng):

@@ -278,11 +278,12 @@ def test_pipeline_thumbnail_routing_on_card(kind, maxwidth, scaled):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     import imagepipe_tpu_torch as tip
-    from imagepipe_tpu_torch import _host
+    from imagepipe_tpu_torch import raw as traw
+    from imagepipe_tpu_torch.sources import ImageSource as PortSource
 
-    make = {"bayer": _host.synthetic_bayer, "xtrans": _host.synthetic_xtrans,
-            "mono": _host.synthetic_mono, "rgb": _host.synthetic_linear}[kind]
-    src = _host.ImageSource.from_raw(make(480, 320))
+    make = {"bayer": traw.synthetic_bayer, "xtrans": traw.synthetic_xtrans,
+            "mono": traw.synthetic_mono, "rgb": traw.synthetic_linear}[kind]
+    src = PortSource.from_raw(make(480, 320))
     card = tip.Pipeline.new_from_source(src, device="cuda")
     cpu = tip.Pipeline.new_from_source(src, device="cpu")
     for p in (card, cpu):
@@ -292,3 +293,27 @@ def test_pipeline_thumbnail_routing_on_card(kind, maxwidth, scaled):
     assert (kds.LAUNCHES - before, kdev.LAUNCHES - full) == (scaled, 0)
     # The CPU pipeline runs 'lut' numerics, the card 'direct': <= 1 LSB apart.
     _assert_contract(got, cpu.output_8bit().data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bayer-100", "bayer-16", "bayer-100-16bit", "xtrans-100",
+                                  "rotate90-100"])
+def test_batch_kernel_matches_single_launches_on_card(case):
+    """One batched launch (shared geometry, per-image calibration) equals B
+    single launches bit for bit and holds the plain version's contract."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    make, maxwidth, bits = CARD_CASES[case]
+    raws = [make() for _ in range(3)]
+    for i, raw in enumerate(raws):
+        raw.wb_coeffs = (1.0 + 0.15 * i, 1.0, 2.0 + 0.3 * i, float("nan"))
+    plans = [tengine.plan_from_jax(_jax_plan(raw, maxwidth, bits), "cuda") for raw in raws]
+    planes = torch.from_numpy(np.stack([raw.data for raw in raws])).cuda()
+    before = kds.BATCH_LAUNCHES
+    got = kds.develop_scaled_batch(plans, planes)
+    torch.cuda.synchronize()
+    assert kds.BATCH_LAUNCHES == before + 1
+    for i, plan in enumerate(plans):
+        assert torch.equal(got[i], kds.develop_scaled(plan, planes[i]))
+    _assert_contract(got, kds.develop_scaled_batch_plain(plans, planes))
+    assert not torch.equal(got[0], got[2])

@@ -34,7 +34,7 @@ import oracle
 from imagepipe_tpu import scaling as jscaling
 from imagepipe_tpu.raw import CFA as JCFA
 from imagepipe_tpu_torch import scaling as tscaling
-from imagepipe_tpu_torch._host import CFA
+from imagepipe_tpu_torch.raw import CFA
 from imagepipe_tpu_torch.kernels.develop import MAX_FLIP_FRACTION, MAX_LSB, compare
 
 torch.set_num_threads(1)
