@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each ending in torch.cuda.synchronize():
   0. setup: the card's name and power limit; build the CUDA kernels from
-     csrc/ (develop.cu and develop_scaled.cu, one nvcc each, in parallel);
+     csrc/ (develop.cu, develop_scaled.cu and rotate.cu, one nvcc each, in
+     parallel);
   1. each kernel against its plain PyTorch version on the card, at full
      size. The develop kernel: 24 MP Bayer 8-bit and 16-bit linear, 26 MP
      X-Trans, 24 MP mono, a Rotate90 frame and a cropped frame. The
@@ -36,10 +37,31 @@ Phases, each ending in torch.cuda.synchronize():
      its single-image plain develop, and the run make exactly 3 launches
      of develop_batch (2 Bayer buckets, 1 X-Trans) and none of the other
      kernels; at maxwidth 1024 exactly 3 of develop_scaled_batch only;
+  1c. the rotate kernel against its plain version: [4, 4000, 6000] f32
+     (24 MP, as the staged path hands it to rotatecrop) rotated 0.05 with
+     crop_left 0.05 (-> 5981x4458), rotated 0.1 with the same crop, rotated
+     0.5 (45 degrees, 7071x7071, half the windows empty), rotated 0.05 with
+     a x2 downscale, and small degenerate geometries (an output 1 wide, a
+     zero x-step, corners outside the source). Contract: max |diff| <= 2e-6
+     (0 expected) and the same NaN and zero pattern;
+  2c. the staged edit path at full width: a 24 MP Bayer DNG through
+     RenderService(device="cuda").open_file, then edits: rotation 0.05 +
+     crop_left 0.05 (the first render), exposure +0.3, rotation 0.1, and
+     rotation 0 (crop only). Each edit must launch the rotate kernel 1, 0,
+     1, 0 times and no develop kernel, and leave 8, 12, 20, 26 cache
+     entries (the reference's hash chain). The first render must agree with the same edit with the
+     rotate step replaced by its plain version (on the cached demosaic
+     stage, finished by the ops' run), and a staged render of the unedited
+     frame with the fused develop kernel (<= 1 LSB, < 2%). Prints per-stage
+     host ms (each stage synchronized), the device's idle share under
+     torch.profiler, and the cache's total_bytes beside the device memory
+     it holds;
   3. kernels and plain versions timed with CUDA events, interleaved,
      median of 7: the develop kernel at 24 MP 8-bit, the scaled kernel at
-     24 MP to 2048, 1024 and 160; the host wall time and breakdown of a
-     cached 1024-px request;
+     24 MP to 2048, 1024 and 160, the rotate kernel at the three 24 MP
+     geometries of phase 1c; the host wall time and breakdown of a cached
+     1024-px request; the edit requests of phase 2c (first render,
+     exposure edit, rotation edit) to host pixels;
   3b. the batch path timed: develop_files throughput of the 16 Bayer files
      (source MP/s, full size and to 1024), its host split (decode, plan,
      staging, dispatch, wait, scatter) and, under torch.profiler, its
@@ -73,12 +95,20 @@ import torch
 import imagepipe_tpu_torch as ipt
 from imagepipe_tpu_torch import dng
 from imagepipe_tpu_torch import raw as traw
+from imagepipe_tpu_torch.buffer import OpBuffer
+from imagepipe_tpu_torch.cache import MultiCache
+from imagepipe_tpu_torch.color import output8bit
 from imagepipe_tpu_torch.decode import decode_file
-from imagepipe_tpu_torch.engine import develop_fused, make_develop_plan
+from imagepipe_tpu_torch.engine import develop_fused, make_develop_plan, planar_to_hwc
+from imagepipe_tpu_torch.hasher import BufHasher
 from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
+from imagepipe_tpu_torch.kernels import rotate as krot
+from imagepipe_tpu_torch.ops.rotatecrop import OpRotateCrop
 from imagepipe_tpu_torch.parallel import BatchEngine, BatchError
-from imagepipe_tpu_torch.sources import ImageSource
+from imagepipe_tpu_torch.scaling import rotated_geometry
+from imagepipe_tpu_torch.service import RenderService
+from imagepipe_tpu_torch.sources import ImageSource, image_content_hash
 
 BAYER = (6000, 4000)
 XTRANS = (6240, 4168)
@@ -107,6 +137,30 @@ OPS_DEMOSAIC_BAYER = 7 * 5 + 8
 # sums) and per output pixel (four averages, 2 each).
 OPS_WINDOW_SAMPLE = 9
 OPS_SCALED_PIXEL = 8
+# rotate.cu per window sample: dx (sub, div), dx^2, two subs for the
+# weight, a product and a sum per channel, the count sum; per window row:
+# dy (sub, div) and dy^2; per output pixel: 6 adds of row and column terms
+# and one division per channel.
+OPS_ROTATE_SAMPLE = 6           # plus 2 per channel
+OPS_ROTATE_ROW = 3
+OPS_ROTATE_PIXEL = 6            # plus 1 per channel
+
+# The staged edit path: the 24 MP source of the rotate kernel is the
+# demosaic stage, planar [4, H, W] f32, and the edits of phase 2c.
+ROTATE_CASES = (("rotation 0.05, crop_left 0.05", 0.05, 0.05),
+                ("rotation 0.1, crop_left 0.05", 0.1, 0.05),
+                ("rotation 0.5 (45 degrees)", 0.5, 0.0))
+# (label, patch, rotate launches, cache entries after it). The entries
+# follow the reference's hash chain: the settings, demosaic size included,
+# come first, and size planning asks a 6000x4000 frame rotated 0.05 for a
+# 5999x3999 demosaic stage, 6000x4000 at 0.1 and at 0: those two edits
+# recompute every stage (8 + 4 + 8 + 6).
+EDITS = (("rotation 0.05 + crop_left 0.05 (first render)",
+          {"rotatecrop": {"rotation": 0.05, "crop_left": 0.05}}, 1, 8),
+         ("exposure +0.3", {"basecurve": {"exposure": 0.3}}, 0, 12),
+         ("rotation 0.1", {"rotatecrop": {"rotation": 0.1}}, 1, 20),
+         ("rotation 0 (crop only)", {"rotatecrop": {"rotation": 0.0}}, 0, 26))
+EDIT_CACHE_BYTES = 16 << 30
 
 
 def _card() -> str:
@@ -138,11 +192,13 @@ def _plan(raw, bits, device, numerics="auto", maxwidth=0, exposure=0.0):
 def _reset_counts():
     kdev.LAUNCHES = kdev.BATCH_LAUNCHES = 0
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
+    krot.LAUNCHES = 0
 
 
 def _counts() -> dict:
     return {"develop": kdev.LAUNCHES, "develop_scaled": kds.LAUNCHES,
-            "develop_batch": kdev.BATCH_LAUNCHES, "develop_scaled_batch": kds.BATCH_LAUNCHES}
+            "develop_batch": kdev.BATCH_LAUNCHES, "develop_scaled_batch": kds.BATCH_LAUNCHES,
+            "rotate": krot.LAUNCHES}
 
 
 def _upload(raw, device):
@@ -597,7 +653,8 @@ def _device_split(prof, wall_ms):
         intervals.append((start, end))
         name = e.name
         kind = ("H2D" if "HtoD" in name else "D2H" if "DtoH" in name
-                else "kernel" if ("develop_kernel" in name or "scaled_kernel" in name)
+                else "kernel" if any(k in name for k in ("develop_kernel", "scaled_kernel",
+                                                           "rotate_kernel"))
                 else "other")
         spans[kind] += (end - start) / 1e3
     if not intervals:
@@ -709,9 +766,233 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> dict:
     return times
 
 
+# -- the staged edit path and the rotate kernel -----------------------------
+
+def _rotate_source(device, shape, seed) -> torch.Tensor:
+    """A seeded uniform [C, H, W] float32 source, made on the device."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+
+
+def _rotatecrop_geometry(rotation, crop_left, width, height):
+    """(topleft, topright, bottomleft, nwidth, nheight) of rotatecrop at
+    these settings on a width x height demosaic stage."""
+    op = OpRotateCrop()
+    op.rotation, op.crop_left = rotation, crop_left
+    return op.geometry(width, height)
+
+
+def _check_rotate(label, src, geometry) -> float:
+    """The rotate kernel against its plain version on `src`: max |diff| <=
+    krot.MAX_ABS_DIFF and the same NaN and zero pattern; returns max |diff|."""
+    c, h, w = src.shape
+    tl, tr, bl, nw, nh = geometry
+    got = krot.rotate_resample_planar(src, w, h, tl, tr, bl, nw, nh, c)
+    want = krot.rotate_resample_plain(src, w, h, tl, tr, bl, nw, nh, c)
+    _sync(src.device)
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
+    same_zero = torch.equal(got == 0, want == 0)
+    maxd = float((got - want).abs().nan_to_num(0.0).max())
+    print(f"  {label}: {w}x{h} -> {nw}x{nh}, max |diff| {maxd}, "
+          f"NaN pattern {'same' if same_nan else 'DIFFERS'}, zero pattern "
+          f"{'same' if same_zero else 'DIFFERS'} ({int((got == 0).sum())} zeros of {got.numel()})")
+    if not (same_nan and same_zero) or maxd > krot.MAX_ABS_DIFF:
+        raise AssertionError(f"{label}: max |diff| {maxd} (limit {krot.MAX_ABS_DIFF}), "
+                             f"NaN pattern same {same_nan}, zero pattern same {same_zero}")
+    return maxd
+
+
+def phase1c(device, bayer) -> float:
+    """The rotate kernel vs its plain version at the staged path's 24 MP
+    shapes and at degenerate geometries; returns the largest |diff|."""
+    width, height = bayer
+    src = _rotate_source(device, (4, height, width), 5)
+    worst = 0.0
+    for label, rotation, crop in ROTATE_CASES:
+        worst = max(worst, _check_rotate(label, src, _rotatecrop_geometry(
+            rotation, crop, width, height)))
+    tl, tr, bl, nw, nh = _rotatecrop_geometry(0.05, 0.05, width, height)
+    worst = max(worst, _check_rotate("rotation 0.05, x2 downscale", src,
+                                     (tl, tr, bl, nw // 2, nh // 2)))
+    small = _rotate_source(device, (4, 100, 100), 6)
+    for label, geometry in (("output 1 wide", ((0, 0), (99, 10), (-10, 99), 1, 50)),
+                            ("output 1 high", ((0, 0), (99, 10), (-10, 99), 50, 1)),
+                            ("zero x-step", ((5, 0), (5, 40), (0, 99), 50, 50)),
+                            ("corners outside the source",
+                             ((-40, 80), (120, -30), (-90, -20), 40, 30))):
+        worst = max(worst, _check_rotate(label, small, geometry))
+    del src, small
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _stage_key(pipe, nstages) -> bytes:
+    """The chain hash of stage `nstages` - 1 of `pipe`'s last staged run."""
+    h = BufHasher()
+    h.write(image_content_hash(pipe.globals.image))
+    pipe.globals.settings.hash(h)
+    for op in pipe.ops.all_ops()[:nstages]:
+        op.hash(h)
+    return h.result()
+
+
+def _first_render_vs_plain(pipe, cache, got) -> int:
+    """The first render against the same edit with its rotate step replaced
+    by the plain version, called on the cached demosaic stage and finished
+    by the later ops' run."""
+    dem = cache.get(_stage_key(pipe, 2))
+    if dem is None:
+        raise AssertionError("the demosaic stage is not in the cache")
+    tl, tr, bl, nw, nh = pipe.ops.rotatecrop.geometry(dem.width, dem.height)
+    buf = OpBuffer(nw, nh, dem.colors, dem.monochrome, krot.rotate_resample_plain(
+        dem.data, dem.width, dem.height, tl, tr, bl, nw, nh, dem.colors))
+    for op in pipe.ops.all_ops()[3:]:
+        buf = op.run(pipe.globals, buf)
+    return _check("first render vs its rotate step in the plain version", got,
+                  planar_to_hwc(output8bit(buf.data)))
+
+
+def phase2c(device, bayer, card) -> int:
+    """The staged edit path through RenderService; returns the rotate
+    kernel's launches on it."""
+    import logging
+
+    from torch.profiler import ProfilerActivity, profile
+
+    none = {k: 0 for k in _counts()}
+    pkg_log = logging.getLogger("imagepipe_tpu_torch")
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "edit.dng")
+        dng.write_dng(path, traw.synthetic_bayer(*bayer, seed=6))
+        baseline = _allocated(device)
+        svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
+        pipe = svc.open_file("frame", path).pipeline
+        launches = 0
+        old_level = pkg_log.level
+        pkg_log.setLevel(logging.DEBUG)      # each stage ends in a synchronize
+        try:
+            for i, (label, patch, want_rotate, want_len) in enumerate(EDITS):
+                _reset_counts()
+                t = time.perf_counter()
+                img = svc.edit("frame", patch)
+                ms = (time.perf_counter() - t) * 1e3
+                counts = _counts()
+                launches += counts["rotate"]
+                held = _allocated(device) - baseline
+                print(f"  edit '{label}': {img.data.shape} {img.data.dtype}, host wall {ms:.1f} ms; "
+                      f"launches {counts}; cache {len(svc.cache)} entries, total_bytes "
+                      f"{svc.cache.total_bytes}, device memory beyond the baseline {held} B")
+                print(f"    stage host ms (each stage synchronized): "
+                      f"{ {k: round(v, 3) for k, v in pipe.stage_ms.items()} }")
+                if device.type == "cuda" and counts != dict(none, rotate=want_rotate):
+                    raise AssertionError(f"{label}: launches {counts}, want rotate {want_rotate}")
+                if len(svc.cache) != want_len:
+                    raise AssertionError(f"{label}: {len(svc.cache)} cache entries, want {want_len}")
+                if i == 0:
+                    _first_render_vs_plain(pipe, svc.cache, img.data)
+        finally:
+            pkg_log.setLevel(old_level)
+
+        # One more edit under the profiler, stages not synchronized.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            svc.edit("frame", {"rotatecrop": {"rotation": 0.07}})
+            pwall = (time.perf_counter() - t) * 1e3
+        split = _device_split(prof, pwall)
+        if split is None:
+            print(f"  edit 'rotation 0.07' under torch.profiler ({pwall:.1f} ms): device split "
+                  f"not measured (the trace holds no device activity)")
+        else:
+            spans, busy = split
+            print(f"  edit 'rotation 0.07' under torch.profiler ({pwall:.1f} ms wall): device ms "
+                  f"{ {k: round(v, 3) for k, v in sorted(spans.items())} }, busy {busy:.3f} ms, "
+                  f"idle share {1 - busy / pwall:.4f} (on {card})")
+        del svc, pipe
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # The unedited frame staged against the fused develop kernel.
+        p = ipt.Pipeline.new_from_file(path, device)
+        staged = p.output_8bit(MultiCache(EDIT_CACHE_BYTES)).data
+        before = kdev.LAUNCHES
+        fused = p.output_8bit(None).data
+        _sync(device)
+        if device.type == "cuda" and kdev.LAUNCHES != before + 1:
+            raise AssertionError("the fused render did not launch the develop kernel once")
+        _check("unedited frame, staged vs fused develop kernel", staged, fused)
+    return launches
+
+
+def rotate_bound(channels, height, width, geometry) -> tuple[float, str]:
+    """The rotate kernel's bound: the source read once, the output written
+    once, and the operations of the K_x x K_y samples it takes per pixel."""
+    tl, tr, bl, nw, nh = geometry
+    g = rotated_geometry(width, height, tl, tr, bl, nw, nh)
+    per_px = (g.k_x * g.k_y * (OPS_ROTATE_SAMPLE + 2 * channels) + g.k_y * OPS_ROTATE_ROW
+              + OPS_ROTATE_PIXEL + channels)
+    return _bound(channels * height * width * 4, channels * nh * nw * 4, nh * nw * per_px)
+
+
+def phase3c(device, bayer, card) -> dict:
+    """The rotate kernel and its plain version timed at the 24 MP shapes,
+    and the edit requests of phase 2c to host pixels."""
+    width, height = bayer
+    src = _rotate_source(device, (4, height, width), 7)
+    times = {}
+    for label, rotation, crop in ROTATE_CASES:
+        geometry = _rotatecrop_geometry(rotation, crop, width, height)
+        tl, tr, bl, nw, nh = geometry
+        t = _in_turns({"kernel": lambda: krot.rotate_resample_planar(
+                           src, width, height, tl, tr, bl, nw, nh, 4),
+                       "plain": lambda: krot.rotate_resample_plain(
+                           src, width, height, tl, tr, bl, nw, nh, 4)},
+                      device, reps=BATCH_REPS)
+        (ms, k_ms), (pms, p_ms) = t["kernel"], t["plain"]
+        bound = rotate_bound(4, height, width, geometry)
+        print(f"  rotate kernel, [4, {height}, {width}] {label} -> {nw}x{nh}: {ms:.4f} ms, plain "
+              f"{pms:.4f} ms (medians of {TIMED_RUNS}; CUDA events over {BATCH_REPS} calls back "
+              f"to back; kernel runs {[round(x, 4) for x in k_ms]}, plain runs "
+              f"{[round(x, 4) for x in p_ms]}); bound {bound[0]:.4f} ms by {bound[1]} (on {card})")
+        if not times:
+            times.update(_timing("rotate", ms, pms, bound))
+    del src
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "edit.dng")
+        dng.write_dng(path, traw.synthetic_bayer(*bayer, seed=6))
+        source = decode_file(path)
+    walls = {label: [] for label, _, _, _ in EDITS[:3]}
+    for _ in range(5):
+        svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
+        svc.open_source("frame", source)
+        for label, patch, _, _ in EDITS[:3]:
+            t = time.perf_counter()
+            svc.edit("frame", patch)
+            walls[label].append((time.perf_counter() - t) * 1e3)
+        del svc
+        torch.cuda.empty_cache()
+    for label, runs in walls.items():
+        print(f"  edit request '{label}' to host pixels: median {statistics.median(runs):.3f} ms "
+              f"of 5 fresh services, runs {[round(x, 3) for x in runs]} (the first run uploads "
+              f"the plane and hashes the frame) (on {card})")
+    return times
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _allocated(device) -> int:
+    """Device memory held by tensors, after a synchronize (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device)
 
 
 KERNELS = (   # name, source, the TPU kernel it replaces
@@ -723,6 +1004,8 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "imagepipe_tpu/kernels/develop_pallas.py:584,930"),
     ("develop_scaled_batch", "imagepipe_tpu_torch/csrc/develop_scaled.cu",
      "imagepipe_tpu/kernels/develop_scaled.py:846,861"),
+    ("rotate", "imagepipe_tpu_torch/csrc/rotate.cu",
+     "imagepipe_tpu/kernels/rotate_pallas.py:288"),
 )
 
 
@@ -751,15 +1034,20 @@ def main() -> int:
     print("phase 1b: batched kernels vs single launches and plain versions")
     errors = dict(develop=max_err, develop_scaled=max_err_scaled,
                   **phase1b(device, bayer_bases, xtrans_bases))
+    print("phase 1c: the rotate kernel vs its plain version")
+    errors["rotate"] = phase1c(device, BAYER)
     print("phase 2: main paths")
     launches, scaled_launches = phase2(device, BAYER)
+    print("phase 2c: the staged edit path, RenderService")
+    rotate_launches = phase2c(device, BAYER, card)
     with tempfile.TemporaryDirectory() as td:
         paths, corrupt = _batch_files(td, bayer_bases, xtrans_bases)
         print("phase 2b: the batch path, BatchEngine.develop_files")
-        counts = dict(develop=launches, develop_scaled=scaled_launches,
+        counts = dict(develop=launches, develop_scaled=scaled_launches, rotate=rotate_launches,
                       **phase2b(device, paths, corrupt))
         print("phase 3: timing")
         times = phase3(device, BAYER, card)
+        times.update(phase3c(device, BAYER, card))
         print("phase 3b: timing the batch path")
         bayer_paths = [p for p in paths[:17] if p != paths[corrupt]]
         times.update(phase3b(device, bayer_paths, bayer_bases, card))

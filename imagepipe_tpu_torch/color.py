@@ -23,9 +23,9 @@ import torch
 
 __all__ = [
     "SRGB_D65_33", "SRGB_D65_XYZ_WHITE", "XYZ_D65_33", "XYZ_D65_34",
-    "SRGB_D65_43", "TransformLUT", "resolve_numerics", "apply_srgb_gamma",
-    "xyz_to_lab", "lab_to_xyz", "camera_to_lab_planar", "lab_to_rgb_planar",
-    "output8bit", "output16bit",
+    "SRGB_D65_43", "TransformLUT", "resolve_numerics", "expand_srgb_gamma",
+    "apply_srgb_gamma", "xyz_to_lab", "lab_to_xyz", "camera_to_lab_planar",
+    "lab_to_rgb_planar", "input8bit", "input16bit", "output8bit", "output16bit",
 ]
 
 _f32 = np.float32
@@ -158,6 +158,30 @@ def _xyz_lab_f(v):
     return torch.where(v > LAB_E, cb, _lab_linear(v))
 
 
+def _np_srgb_expand(v):
+    v = v.astype(_f32)
+    lo = (v / _f32(12.92)).astype(_f32)
+    hi = np.power((v + _f32(0.055)) / _f32(1.055), _f32(2.4)).astype(_f32)
+    return np.where(v < _f32(0.04045), lo, hi)
+
+
+_GAMMA_EXP = float(_f32(2.4))
+
+
+def _srgb_expand_ref(v):
+    safe = torch.clamp(v, min=-0.054)
+    hi = torch.pow(_div(safe + 0.055, 1.055), _GAMMA_EXP)
+    return torch.where(v < 0.04045, _div(v, 12.92), hi)
+
+
+def _srgb_expand(v):
+    # Guard against non-positive bases (the branch selects hi only for
+    # v >= 0.04045); the exp/log form of the other direct transforms.
+    safe = torch.clamp(v, min=-0.054)
+    hi = torch.exp(torch.log(torch.clamp(_div(safe + 0.055, 1.055), min=1e-30)) * _GAMMA_EXP)
+    return torch.where(v < 0.04045, _div(v, 12.92), hi)
+
+
 def _np_srgb_apply(v):
     v = v.astype(_f32)
     lo = (v * _f32(12.92)).astype(_f32)
@@ -176,7 +200,13 @@ def _srgb_apply(v):
 
 
 XYZ_LAB_TRANSFORM = TransformLUT(_np_xyz_lab_f, _xyz_lab_f, _xyz_lab_f_ref)
+SRGB_GAMMA_REVERSE = TransformLUT(_np_srgb_expand, _srgb_expand, _srgb_expand_ref)
 SRGB_GAMMA_TRANSFORM = TransformLUT(_np_srgb_apply, _srgb_apply, _srgb_apply_ref)
+
+
+def expand_srgb_gamma(v: torch.Tensor, numerics: str) -> torch.Tensor:
+    """Remove sRGB gamma (color_conversions.rs:144-147)."""
+    return SRGB_GAMMA_REVERSE(v, numerics)
 
 
 def apply_srgb_gamma(v: torch.Tensor, numerics: str) -> torch.Tensor:
@@ -245,8 +275,17 @@ def lab_to_rgb_planar(rgbmatrix, lab_planes):
     return r, g, b
 
 
-# Quantizers (color_conversions.rs:312-330): output8bit truncates v*256,
-# output16bit rounds half away from zero.
+# Quantizers (color_conversions.rs:312-330): input8bit and input16bit scale
+# to [0, 1], output8bit truncates v*256, output16bit rounds half away from
+# zero.
+
+def input8bit(v: torch.Tensor) -> torch.Tensor:
+    return _div(v.float(), 255.0)
+
+
+def input16bit(v: torch.Tensor) -> torch.Tensor:
+    return _div(v.float(), 65535.0)
+
 
 def output8bit(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v * 256.0, 0.0, 255.0).to(torch.uint8)

@@ -32,6 +32,7 @@ from .raw import CFA
 from .kernels.demosaic_full import stencil_demosaic_planes
 from .ops.colorspaces import normalize_wbs
 from .ops.demosaic import minscale_for
+from .ops.gofloat import levels
 from .scaling import calculate_scale, scale_down_planar, scaling_size
 from .spline import SplineFunc, eval_spline_arrays
 
@@ -112,7 +113,8 @@ def make_develop_plan(pipeline, out_bits: int = 8, numerics: str = "auto",
         raise ValueError("the develop plan targets RAW sources")
     ops = pipeline.ops
     if not ops.rotatecrop._noop():
-        raise NotImplementedError("rotatecrop (non-noop crop or rotation): ROADMAP A9")
+        raise ValueError("the develop plan does not cover rotatecrop; the staged "
+                         "path (Pipeline.run) runs it")
     raw = img.raw
 
     gf = ops.gofloat
@@ -202,10 +204,6 @@ def plan_from_jax(jax_plan, device) -> DevelopPlan:
         dem_path=jax_plan.dem_path, dem_w=jax_plan.dem_w, dem_h=jax_plan.dem_h)
 
 
-def _levels(plane, mins, ranges):
-    return torch.clamp((plane - mins) / ranges, max=1.0)
-
-
 def _develop_one(plan: DevelopPlan, plane: torch.Tensor, numerics: str):
     """plane: the full sensor [H0,W0] (cfa/mono) or [H0,W0,3] (rgb), u16 or
     f32 counts -> quantized planar [3, H', W']. Crop, levels (cfa/mono use
@@ -215,10 +213,10 @@ def _develop_one(plan: DevelopPlan, plane: torch.Tensor, numerics: str):
     h, w = plan.height, plan.width
     plane = plane[plan.crop_y:plan.crop_y + h, plan.crop_x:plan.crop_x + w].float()
     if plan.mode == "rgb":
-        rgbe = [_levels(plane[..., c], p["mins"][c], p["ranges"][c]) for c in range(3)]
+        rgbe = [levels(plane[..., c], p["mins"][c], p["ranges"][c]) for c in range(3)]
         rgbe.append(torch.zeros((h, w), dtype=torch.float32, device=plane.device))
     else:
-        v = _levels(plane, p["mins"][0], p["ranges"][0])
+        v = levels(plane, p["mins"][0], p["ranges"][0])
         if plan.mode == "mono":
             rgbe = [v, v, v, torch.zeros_like(v)]
         elif plan.dem_path == "scaled":

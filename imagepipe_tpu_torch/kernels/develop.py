@@ -128,7 +128,8 @@ def build() -> Path:
 
 
 def _library():
-    """The kernels' library, built if needed, with both entry points bound."""
+    """The kernels' library, built if needed, with every entry point bound
+    (the develop kernels' and kernels/rotate.py's)."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -140,6 +141,9 @@ def _library():
         lib.develop_scaled_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i,
                                                     p, p, p, p, p, p, p, p, i, i,
                                                     p, i, i, i, i, p, p]
+        f = ctypes.c_float
+        lib.rotate_resample_launch.restype = i
+        lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, p, p]
         _lib = lib
     return _lib
 

@@ -1,21 +1,21 @@
-"""The op contract, parameter side.
+"""The op contract.
 
 Counterpart of `imagepipe_tpu/ops/base.py` (the ImageOp trait,
 pipeline.rs:82-108). Each op is a small host-side parameter object whose
 hash covers its name plus a canonical binary serialization of every field;
 the bytes are those of the JAX package, so content hashes and YAML serials
-agree across the two packages. The staged per-op execution (`run`,
-`device_chain`) is not ported yet: the full-size develop runs the whole
-chain at once (engine.py, kernels/develop.py).
+agree across the two packages. `run(globals, buf)` is the op's stage of the
+staged pipeline: an OpBuffer in, an OpBuffer out, on the buffer's device.
+The JAX package's `device_chain` (a fused dirty suffix, to save TPU
+dispatch round trips) is not ported: the port runs the suffix stage by
+stage.
 """
 
 from __future__ import annotations
 
 from ..hasher import BufHasher
 
-__all__ = ["ImageOp", "STAGED"]
-
-STAGED = "staged op execution (run / device_chain / cache): ROADMAP A5"
+__all__ = ["ImageOp"]
 
 
 class ImageOp:
@@ -25,10 +25,7 @@ class ImageOp:
         return self.NAME
 
     def run(self, globals_, buf):
-        raise NotImplementedError(f"{self.NAME}: {STAGED}")
-
-    def device_chain(self, globals_, meta):
-        raise NotImplementedError(f"{self.NAME}: {STAGED}")
+        raise NotImplementedError
 
     def serialize_binary(self) -> bytes:
         raise NotImplementedError

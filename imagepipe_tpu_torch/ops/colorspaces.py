@@ -1,9 +1,9 @@
 """Stages 4 and 6: camera RGBE -> Lab and Lab -> linear sRGB.
 
-Counterpart of `imagepipe_tpu/ops/colorspaces.py` (colorspaces.rs),
-parameter side: camera matrices, white-balance normalization and the
-interactive white balance over the Planckian locus (host float math). The
-colour transforms themselves run inside the develop (color.py).
+Counterpart of `imagepipe_tpu/ops/colorspaces.py` (colorspaces.rs): camera
+matrices, white-balance normalization and the interactive white balance
+over the Planckian locus (host float math); each stage's transform is one
+eager elementwise pass of color.py on the buffer's device.
 """
 
 from __future__ import annotations
@@ -11,9 +11,11 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from .base import ImageOp
 from .. import hasher
+from ..buffer import OpBuffer
 from ..cct import temp_to_xyz, xyz_to_temp
 from .. import color as cc
 
@@ -103,6 +105,17 @@ class OpToLab(ImageOp):
                     xyz[i] += float(self.cam_to_xyz[i][j]) / mul
         return xyz_to_temp(xyz)
 
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        # Monochrome: the camera is D65 sRGB with unity WB
+        # (colorspaces.rs:90-101).
+        if buf.monochrome:
+            cmatrix, mul = cc.SRGB_D65_43, [1.0, 1.0, 1.0, 1.0]
+        else:
+            cmatrix, mul = self.cam_to_xyz_normalized, normalize_wbs(self.wb_coeffs)
+        numerics = cc.resolve_numerics("auto", buf.data.device)
+        lab = cc.camera_to_lab_planar(mul, cmatrix, [buf.data[c] for c in range(4)], numerics)
+        return OpBuffer(buf.width, buf.height, 3, buf.monochrome, torch.stack(lab))
+
 
 class OpFromLab(ImageOp):
     NAME = "from_lab"
@@ -118,3 +131,7 @@ class OpFromLab(ImageOp):
 
     def load_settings_dict(self, d: dict) -> None:
         pass
+
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        rgb = cc.lab_to_rgb_planar(cc.XYZ_D65_33, (buf.data[0], buf.data[1], buf.data[2]))
+        return OpBuffer(buf.width, buf.height, 3, buf.monochrome, torch.stack(rgb))

@@ -1,15 +1,22 @@
 """Stage 5: tone curve on the L channel.
 
-Counterpart of `imagepipe_tpu/ops/curves.py` (curves.rs:5-56), parameter
-side. Exposure scales each control point's y by 2^exposure before the
-spline is fitted; the develop plan fits it (engine.make_develop_plan).
+Counterpart of `imagepipe_tpu/ops/curves.py` (curves.rs:5-56). Exposure
+scales each control point's y by 2^exposure before the spline is fitted
+on the host; the staged run evaluates it on the L plane, the fused develop
+takes its coefficients (engine.make_develop_plan).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
+import torch
+
 from .base import ImageOp
 from .. import hasher
-from ..spline import SplineFunc
+from ..buffer import OpBuffer
+from ..spline import SplineFunc, eval_spline_arrays
 
 __all__ = ["OpBaseCurve"]
 
@@ -39,3 +46,13 @@ class OpBaseCurve(ImageOp):
 
     def get_spline(self) -> SplineFunc:
         return SplineFunc(self.points)
+
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        if len(self.points) == 0 and abs(self.exposure) < 0.001:
+            return buf
+        scale = math.pow(2.0, self.exposure)
+        func = SplineFunc([(x, y * scale) for (x, y) in self.points])
+        tables = [torch.tensor(np.asarray(a, np.float32), device=buf.data.device)
+                  for a in (func.xs, func.ys, func.c1s, func.c2s, func.c3s)]
+        L = eval_spline_arrays(*tables, len(func.xs), buf.data[0])
+        return buf.with_data(torch.cat([L[None], buf.data[1:]]))

@@ -1,14 +1,22 @@
-"""Stage 2: CFA -> RGBE.
+"""Stage 2: CFA -> RGBE, fused with downscale where possible.
 
-Counterpart of `imagepipe_tpu/ops/demosaic.py` (demosaic.rs), parameter
-side: the crop-anchored CFA the develop demosaics with, and the minimum
-scale of the fused scaled demosaic that size planning uses.
+Counterpart of `imagepipe_tpu/ops/demosaic.py` (demosaic.rs). Path
+selection (demosaic.rs:41-60) is host logic: a 4-channel input passes
+through or is downscaled; a CFA input at or beyond the CFA's minimum scale
+takes the fused scaled demosaic (full-resolution RGB never exists), else
+the full-resolution 3x3 stencil demosaic, then a downscale if asked.
 """
 
 from __future__ import annotations
 
+import torch
+
 from .base import ImageOp
 from .. import hasher
+from .. import scaling
+from ..buffer import OpBuffer
+from ..kernels.demosaic_full import stencil_demosaic_planes
+from ..raw import CFA
 
 __all__ = ["OpDemosaic", "minscale_for"]
 
@@ -36,3 +44,20 @@ class OpDemosaic(ImageOp):
 
     def load_settings_dict(self, d: dict) -> None:
         self.cfa = str(d["cfa"] or "")
+
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        nwidth = globals_.settings.demosaic_width
+        nheight = globals_.settings.demosaic_height
+        scale = scaling.calculate_scale(buf.width, buf.height, nwidth, nheight)
+        cfa = CFA(self.cfa)
+        if scale <= 1.0 and buf.colors == 4:
+            return buf
+        if buf.colors == 4:
+            return scaling.scale_down_opbuf(buf, nwidth, nheight)
+        if scale >= minscale_for(cfa.width):
+            return scaling.scaled_demosaic(cfa, buf, nwidth, nheight)
+        fullsize = OpBuffer(buf.width, buf.height, 4, buf.monochrome, torch.stack(
+            stencil_demosaic_planes(buf.data[0], cfa.name, buf.height, buf.width)))
+        if scale > 1.0:
+            return scaling.scale_down_opbuf(fullsize, nwidth, nheight)
+        return fullsize

@@ -1,13 +1,17 @@
 """Stage 7: sRGB gamma encode.
 
 Counterpart of `imagepipe_tpu/ops/gamma.py` (gamma.rs). The op has no
-parameters; the develop clamps to [0,1] and applies the gamma unless the
-output is 16-bit linear (gamma.rs:17-18).
+parameters: clamp to [0,1], then the sRGB gamma on every channel, skipped
+for linear 16-bit output (gamma.rs:17-18).
 """
 
 from __future__ import annotations
 
+import torch
+
 from .base import ImageOp
+from .. import color as cc
+from ..buffer import OpBuffer
 
 __all__ = ["OpGamma"]
 
@@ -26,3 +30,9 @@ class OpGamma(ImageOp):
 
     def load_settings_dict(self, d: dict) -> None:
         pass
+
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        if globals_.settings.linear:
+            return buf
+        numerics = cc.resolve_numerics("auto", buf.data.device)
+        return buf.with_data(cc.apply_srgb_gamma(torch.clamp(buf.data, 0.0, 1.0), numerics))

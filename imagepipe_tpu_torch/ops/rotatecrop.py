@@ -1,10 +1,12 @@
 """Stage 3: user fractional crop + free rotation.
 
-Counterpart of `imagepipe_tpu/ops/rotatecrop.py` (rotatecrop.rs),
-parameter side: fields, the no-op test, and the stateful size negotiation
-(output size committed during the reverse planning pass,
-rotatecrop.rs:66-85) in float32. The resampler that applies a non-noop
-crop or rotation is not ported yet (ROADMAP A9).
+Counterpart of `imagepipe_tpu/ops/rotatecrop.py` (rotatecrop.rs): fields,
+the no-op test, the stateful size negotiation (output size committed
+during the reverse planning pass, rotatecrop.rs:66-85) and the inverse
+mapping of the output's corners, all in float32 host arithmetic. The
+resample is the shared resampler (scaling.transform_buffer_planar): a
+pure crop is axis-aligned; a rotation runs the rotate kernel on CUDA
+(kernels/rotate.py).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import numpy as np
 
 from .base import ImageOp
 from .. import hasher
+from .. import scaling
+from ..buffer import OpBuffer
 
 __all__ = ["OpRotateCrop"]
 
@@ -38,6 +42,10 @@ class OpRotateCrop(ImageOp):
         self.rotation = 0.0
         self.input_ratio = 1.0
         self.output_size = None
+
+    @staticmethod
+    def empty() -> "OpRotateCrop":
+        return OpRotateCrop(None)
 
     def serialize_binary(self) -> bytes:
         return (hasher.pack_f32(self.crop_top) + hasher.pack_f32(self.crop_right)
@@ -93,6 +101,19 @@ class OpRotateCrop(ImageOp):
         rot = _f32(1.0) if self.rotation > 1.0 else _f32(self.rotation)
         return _f32(_FRAC_PI_2 * rot)
 
+    def _rotate_point_reverse(self, x, y, width, height, swidth, sheight):
+        """Map a dest-space point back to source space (rotatecrop.rs:97-109).
+        f32 arithmetic; returns integer (isize-truncated) coordinates."""
+        if self.rotation < EPSILON:
+            return (int(x), int(y))
+        a = self._angle()
+        sin, cos = _f32(np.sin(a)), _f32(np.cos(a))
+        tx = _f32(_f32(x) - _f32(width) / _f32(2.0))
+        ty = _f32(_f32(y) - _f32(height) / _f32(2.0))
+        nx = _f32(tx * cos + ty * sin + _f32(swidth) / _f32(2.0))
+        ny = _f32(-tx * sin + ty * cos + _f32(sheight) / _f32(2.0))
+        return (int(nx), int(ny))  # Rust `as isize` truncates toward zero
+
     def _calc_size(self, owidth, oheight, reverse):
         """Forward/reverse output-size math incl. rotation bounding box
         (rotatecrop.rs:111-163), float32 throughout."""
@@ -125,3 +146,42 @@ class OpRotateCrop(ImageOp):
             nheight = _f32(self._round(nwidth / ir))
 
         return (int(nwidth), int(nheight))
+
+    # -- execution (rotatecrop.rs:39-64) -----------------------------------
+
+    def geometry(self, width: int, height: int):
+        """(topleft, topright, bottomleft, nwidth, nheight) of the resample
+        of a width x height input: the source images of the output's
+        corners (rotatecrop.rs:39-64), or None for a no-op or a crop
+        outside the image (logged; the op then passes its input through)."""
+        if self._noop():
+            return None
+        swidth, sheight = _f32(width), _f32(height)
+        nwidth, nheight = self._calc_size(width, height, reverse=False)
+        fnwidth, fnheight = _f32(nwidth), _f32(nheight)
+
+        x = float(np.floor(_f32(swidth * _f32(self.crop_left))))
+        if x < 0.0 or x > swidth:
+            log.error("Trying to crop left outside image")
+            return None
+        y = float(np.floor(_f32(sheight * _f32(self.crop_top))))
+        if y < 0.0 or y > sheight:
+            log.error("Trying to crop top outside image")
+            return None
+
+        topleft = self._rotate_point_reverse(x, y, fnwidth, fnheight, swidth, sheight)
+        topright = self._rotate_point_reverse(
+            _f32(_f32(x) + fnwidth - _f32(1.0)), y, fnwidth, fnheight, swidth, sheight)
+        bottomleft = self._rotate_point_reverse(
+            x, _f32(_f32(y) + fnheight - _f32(1.0)), fnwidth, fnheight, swidth, sheight)
+        return topleft, topright, bottomleft, nwidth, nheight
+
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        g = self.geometry(buf.width, buf.height)
+        if g is None:
+            return buf
+        topleft, topright, bottomleft, nwidth, nheight = g
+        data = scaling.transform_buffer_planar(
+            buf.data, buf.width, buf.height, topleft, topright, bottomleft,
+            nwidth, nheight, buf.colors)
+        return OpBuffer(nwidth, nheight, buf.colors, buf.monochrome, data)

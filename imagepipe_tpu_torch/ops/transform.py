@@ -1,8 +1,10 @@
 """Stage 8: orientation fix (90-degree rotations and flips).
 
-Counterpart of `imagepipe_tpu/ops/transform.py` (transform.rs), parameter
-side: the EXIF orientation as a rotation plus user flips, composed into
-the (transpose, flip_x, flip_y) the develop applies to its planar output.
+Counterpart of `imagepipe_tpu/ops/transform.py` (transform.rs): the EXIF
+orientation as a rotation plus user flips, composed into (transpose,
+flip_x, flip_y). The staged run applies them to the planar buffer as the
+develop applies them to its output (kernels.develop.apply_flips: flip
+copies, then a transposed view).
 """
 
 from __future__ import annotations
@@ -11,9 +13,10 @@ import enum
 
 from .base import ImageOp
 from .. import hasher
+from ..buffer import OpBuffer
 from ..raw import Orientation
 
-__all__ = ["Rotation", "OpTransform"]
+__all__ = ["Rotation", "OpTransform", "rotate_buffer"]
 
 
 class Rotation(enum.Enum):
@@ -45,6 +48,21 @@ _FROM_EXIF = {
 }
 
 
+def rotate_buffer(buf: OpBuffer, orientation: Orientation) -> OpBuffer:
+    """Apply an EXIF orientation (transform.rs:87-144) to a 3-channel
+    buffer: out[r, c] = in[...] with flip_x, flip_y, then the transpose."""
+    from ..kernels.develop import apply_flips
+
+    assert buf.colors == 3
+    if orientation in (Orientation.Normal, Orientation.Unknown):
+        return buf
+    transpose, flip_x, flip_y = orientation.to_flips()
+    data = apply_flips(buf.data, (transpose, flip_x, flip_y))
+    if transpose:
+        return OpBuffer(buf.height, buf.width, 3, buf.monochrome, data)
+    return OpBuffer(buf.width, buf.height, 3, buf.monochrome, data)
+
+
 class OpTransform(ImageOp):
     NAME = "transform"
 
@@ -71,6 +89,12 @@ class OpTransform(ImageOp):
         # Compose base rotation with user flips (transform.rs:57-66).
         f1, f2, f3 = _ROT_TO_ORIENT[self.rotation].to_flips()
         return Orientation.from_flips((f1, f2 != self.fliph, f3 != self.flipv))
+
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        orientation = self._orientation()
+        if orientation in (Orientation.Normal, Orientation.Unknown):
+            return buf
+        return rotate_buffer(buf, orientation)
 
     def transform_forward(self, width, height):
         if self.rotation in (Rotation.Rotate90, Rotation.Rotate270):

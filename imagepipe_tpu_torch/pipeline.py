@@ -1,22 +1,27 @@
-"""Pipeline: the eight ops, their content hash and YAML serial, and the
-develop of a RAW to 8-bit or 16-bit output, at full size or as a
-thumbnail (settings.maxwidth / maxheight).
+"""Pipeline: the eight ops, their content hash and YAML serial, size
+planning, the stage cache, and the develop of an image to 8-bit or 16-bit
+output, at full size or as a thumbnail (settings.maxwidth / maxheight).
 
 Counterpart of `imagepipe_tpu/pipeline.py` (pipeline.rs). Settings, ops,
-hashing and serials are byte-identical to the JAX package's. What runs:
+hashing and serials are byte-identical to the JAX package's. The routing of
+`output_8bit(cache)` / `output_16bit(cache)` is the JAX package's:
 
-* a RAW source with default geometry (no rotatecrop) develops in one pass.
-  On CUDA, in 'direct' numerics, full-size cfa and mono plans launch the
-  develop kernel (kernels/develop.py) and 'scaled' cfa thumbnails the
-  scaled-demosaic kernel (kernels/develop_scaled.py). Every other plan
-  ('fulldown', 'plaindown', rgb, 'lut') runs the eager engine (engine.py)
-  on the same device;
-* a raster source with default ops takes the fast path; a downscale runs
-  the port's resampler on the pipeline's device.
-
-The staged per-op run with its stage cache (`cache=`, `run()`) and a
-non-noop rotatecrop are later slices; they raise NotImplementedError
-naming their ROADMAP item.
+* a raster source with default ops (and the fast path allowed) takes the
+  raster fast path; a downscale runs the resampler on the pipeline's device;
+* a RAW source with `cache=None`, the fast path allowed and a no-op
+  rotatecrop develops in one pass. On CUDA, in 'direct' numerics,
+  full-size cfa and mono plans launch the develop kernel
+  (kernels/develop.py) and 'scaled' cfa thumbnails the scaled-demosaic
+  kernel (kernels/develop_scaled.py). Every other plan ('fulldown',
+  'plaindown', rgb, 'lut') runs the eager engine (engine.py);
+* everything else runs staged (`run`, `_run_impl`): 3-pass size planning,
+  a hash chain salted with the image's content hash, the deepest cache hit
+  (latest wins), then each dirty op's `run` in turn, its result cached under
+  its chain hash (pipeline.rs:311-375). A rotated frame's rotatecrop runs
+  the rotate kernel on CUDA (kernels/rotate.py). The JAX package's fused
+  dirty suffix (`device_chain`, `_dispatch_fused`) collapses the suffix into
+  one jit to save TPU dispatch round trips and is bit-equal to this loop;
+  it is not ported.
 
 A Pipeline develops on one device, chosen when it is made: `device=None`
 is `default_device()`, the first CUDA device; the CPU only when asked for.
@@ -34,24 +39,28 @@ import torch
 import yaml
 
 from . import hasher
+from .buffer import OpBuffer
+from .cache import MultiCache
+from .color import output8bit, output16bit
 from .decode import decode_file
 from .hasher import BufHasher
-from .sources import ImageSource
+from .sources import ImageSource, image_content_hash
 from .engine import develop_fused, make_develop_plan, planar_to_hwc
 from .kernels import develop as kdev
 from .kernels import develop_scaled as kdev_scaled
 from .ops import gofloat, demosaic, rotatecrop, colorspaces, curves, gamma, transform
-from .ops.base import STAGED
 from .scaling import scale_down_srgb, scale_down_srgb16, scaling_size
 
 __all__ = [
     "SRGBImage", "SRGBImage16", "PipelineSettings", "PipelineGlobals",
-    "PipelineOps", "Pipeline", "SERIAL_VERSION", "default_device",
+    "PipelineOps", "Pipeline", "PipelineCache", "SERIAL_VERSION", "default_device",
 ]
 
 log = logging.getLogger("imagepipe_tpu_torch")
 
 SERIAL_VERSION = 0
+
+PipelineCache = MultiCache
 
 
 def default_device() -> torch.device:
@@ -69,6 +78,11 @@ def _timing(name: str):
     start = time.perf_counter()
     yield
     log.info("timing: %7.1f ms for |%s", (time.perf_counter() - start) * 1000.0, name)
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass
@@ -109,8 +123,16 @@ class PipelineSettings:
 
 @dataclasses.dataclass
 class PipelineGlobals:
+    """The image, the settings, and the device the staged ops run on (not
+    hashed: the settings alone enter the hash chain)."""
     image: ImageSource
     settings: PipelineSettings
+    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cpu"))
+
+    @staticmethod
+    def mock(width: int, height: int, device="cpu") -> "PipelineGlobals":
+        img = ImageSource.from_raster(np.zeros((height, width, 3), np.uint8))
+        return PipelineGlobals(img, PipelineSettings(), torch.device(device))
 
 
 class PipelineOps:
@@ -165,9 +187,18 @@ class Pipeline:
         self.globals = globals_
         self.ops = ops
         self.device = torch.device(default_device() if device is None else device)
+        self.globals.device = self.device
         self._fused_plan = None
+        # Host ms of each stage of the last staged run, by op name; with the
+        # logger at DEBUG each stage ends in a device synchronize, so they
+        # include its device time.
+        self.stage_ms: dict[str, float] = {}
 
     # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def new_cache(size: int) -> MultiCache:
+        return MultiCache(size)
 
     @staticmethod
     def new_from_file(path, device=None) -> "Pipeline":
@@ -203,8 +234,70 @@ class Pipeline:
         pipe.ops.load_settings_dict(opsdict)
         return pipe
 
-    def run(self, cache=None):
-        raise NotImplementedError(f"Pipeline.run: {STAGED}")
+    # -- the scheduler (pipeline.rs:311-375) -------------------------------
+
+    def run(self, cache: MultiCache | None = None) -> OpBuffer:
+        return self._run_impl(cache)
+
+    def _run_impl(self, cache) -> OpBuffer:
+        with _timing("  total pipeline"):
+            ops = self.ops.all_ops()
+
+            # Phase A: reset op memo state.
+            for op in ops:
+                op.reset()
+
+            # Phase B: 3-pass size planning.
+            width, height = self.globals.image.width(), self.globals.image.height()
+            for op in ops:
+                width, height = op.transform_forward(width, height)
+            log.debug("Maximum possible image size is %dx%d", width, height)
+            settings = self.globals.settings
+            width, height = scaling_size(width, height, settings.maxwidth, settings.maxheight)
+            log.debug("Final image size is %dx%d", width, height)
+            for op in reversed(ops):
+                width, height = op.transform_reverse(width, height)
+            log.debug("Needed image size at demosaic %dx%d", width, height)
+            settings.demosaic_width = width
+            settings.demosaic_height = height
+
+            # Phase C: chained hashing, salted with the image content hash
+            # so a cache shared by several images cannot collide; the
+            # deepest hit wins (pipeline.rs:341-352).
+            h = BufHasher()
+            h.write(image_content_hash(self.globals.image))
+            settings.hash(h)
+            ophashes = []
+            startpos = 0
+            bufin = OpBuffer.default()
+            for i, op in enumerate(ops):
+                op.hash(h)
+                ophashes.append(h.copy().result())
+                if cache is not None:
+                    hit = cache.get(ophashes[-1])
+                    if hit is not None:
+                        bufin = hit
+                        startpos = i + 1
+
+            # Phase D: run the dirty suffix, one stage at a time.
+            return self._execute_suffix(ops, startpos, bufin, ophashes, cache)
+
+    def _execute_suffix(self, ops, startpos, bufin, ophashes, cache) -> OpBuffer:
+        """Run ops[startpos:], caching each stage's result under its chain
+        hash (pipeline.rs:354-372), and record each stage's host ms."""
+        self.stage_ms = {}
+        sync = log.isEnabledFor(logging.DEBUG)
+        for i in range(startpos, len(ops)):
+            op = ops[i]
+            start = time.perf_counter()
+            bufin = op.run(self.globals, bufin)
+            if sync:
+                _synchronize(self.device)
+            ms = self.stage_ms[op.name()] = (time.perf_counter() - start) * 1e3
+            log.info("timing: %7.1f ms for |    %s", ms, op.name())
+            if cache is not None:
+                cache.put_arc(ophashes[i], bufin, bufin.nbytes())
+        return bufin
 
     # -- outputs (pipeline.rs:377-469) -------------------------------------
 
@@ -235,15 +328,8 @@ class Pipeline:
 
     def _sensor_plane(self) -> torch.Tensor:
         """The RAW's sensor data on this pipeline's device, uploaded once
-        per RawImage and device. Cached under its own attribute: the JAX
-        package keeps jax arrays in `_device_plane` / `_pallas_staged`."""
-        raw = self.globals.image.raw
-        hit = getattr(raw, "_torch_plane", None)
-        if hit is not None and hit[0] == self.device:
-            return hit[1]
-        plane = torch.from_numpy(np.ascontiguousarray(raw.data)).to(self.device)
-        raw._torch_plane = (self.device, plane)
-        return plane
+        per RawImage and device (shared with the staged gofloat)."""
+        return gofloat.sensor_plane(self.globals.image.raw, self.device)
 
     def _run_fused(self, out_bits: int) -> np.ndarray:
         plan = self._fused_plan_cached(out_bits)
@@ -271,26 +357,24 @@ class Pipeline:
             src = torch.from_numpy(np.require(rgb, requirements=["C", "W"])).to(self.device)
             return scale(src, nwidth, nheight).cpu().numpy()
 
-    def _output(self, bits: int, cache):
-        if cache is not None:
-            raise NotImplementedError(f"cache argument: {STAGED}")
+    def _output(self, bits: int, cache) -> np.ndarray:
         if self._fastpath_applicable():
             return self._raster_fastpath(bits)
-        if not self._fused_applicable():
-            if self.globals.image.is_raw and self.globals.settings.use_fastpath:
-                raise NotImplementedError(
-                    "rotatecrop (non-noop crop or rotation): ROADMAP A9")
-            raise NotImplementedError(f"edited raster or use_fastpath=False: {STAGED}")
         # 8-bit output is gamma-encoded; 16-bit output is linear.
         self.globals.settings.linear = bits == 16
-        return self._run_fused(bits)
+        if cache is None and self._fused_applicable():
+            return self._run_fused(bits)
+        buffer = self._run_impl(cache)
+        with _timing(f"  {bits} bit conversion"):
+            quant = output8bit(buffer.data) if bits == 8 else output16bit(buffer.data)
+            return planar_to_hwc(quant)
 
-    def output_8bit(self, cache=None) -> SRGBImage:
+    def output_8bit(self, cache: MultiCache | None = None) -> SRGBImage:
         with _timing("total output_8bit()"):
             data = self._output(8, cache)
         return SRGBImage(data.shape[1], data.shape[0], data)
 
-    def output_16bit(self, cache=None) -> SRGBImage16:
+    def output_16bit(self, cache: MultiCache | None = None) -> SRGBImage16:
         with _timing("total output_16bit()"):
             data = self._output(16, cache)
         return SRGBImage16(data.shape[1], data.shape[0], data)

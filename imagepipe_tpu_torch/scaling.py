@@ -1,34 +1,51 @@
-"""Size planning (scaling.rs:8-32) and the axis-aligned resampler
-(scaling.rs:51-130) on tensors.
+"""Size planning (scaling.rs:8-32) and the resampler (scaling.rs:51-130)
+on tensors.
 
 Counterpart of `imagepipe_tpu/scaling.py`, whose file imports JAX at the
 top. Size planning is the reference's float32 arithmetic on the host. The
-resampler is the axis-aligned part of the JAX package's
-`_transform_aligned_impl`: each output pixel is the paraboloid-weighted
-mean `max(0, (1 - dx^2) - dy^2)` over its source window, per colour of the
-CFA (the fused demosaic-downscale) or per channel. It runs eagerly on the
-input's device as a direct windowed gather: a row gather by window row,
-then a column gather by window column, accumulated ky outer, kx inner, as
-the reference's scalar loop. The one-hot column matmul, banding and static
-unroll of the JAX file are TPU workarounds and are not ported.
+resampler maps each output pixel back to a source window bounded by the
+float32 affine images of the pixel's cell corners and takes the
+paraboloid-weighted mean `max(0, (1 - dx^2) - dy^2)` over it, per colour of
+the CFA (the fused demosaic-downscale) or per channel. An empty or inverted
+window gives 0.
 
-The window indices and centres are host numpy float32 with two roundings
-(`aligned_axes`): a device `base + skip * index` may be contracted into one
-FMA whose single rounding floors to another source pixel.
+* Axis-aligned geometry (every scale-down and pure crop) is the JAX
+  package's `_transform_aligned_impl`, run eagerly on the input's device as
+  a direct windowed gather: a row gather by window row, then a column
+  gather by window column, accumulated ky outer, kx inner, as the
+  reference's scalar loop. The one-hot column matmul, banding and static
+  unroll of the JAX file are TPU workarounds and are not ported.
+* Rotated geometry (rotatecrop) is `_transform_impl`: the window bounds
+  vary along both axes, so each (ky, kx) step gathers one sample per output
+  pixel. On CUDA the non-CFA case is the rotate kernel
+  (kernels/rotate.py, csrc/rotate.cu); `_transform_rotated` is its plain
+  version and the CPU's executor. The CFA-aware rotated resample is
+  reached only by a staged scaled demosaic to an output 1 pixel wide or
+  high (an extent of 1 is not axis-aligned); it runs on the CPU and raises
+  on CUDA (ROADMAP A12).
 
-Rotated geometry (rotatecrop) is not ported: ROADMAP A9.
+Every window index and centre is host numpy float32 with two roundings
+(`aligned_axes`, `rotated_geometry`); a rotated geometry leaves one device
+add of a row term and a column term before each floor(). A device
+`base + skip * index` may be contracted into one FMA whose single rounding
+floors to another source pixel.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .buffer import OpBuffer
+
 __all__ = ["calculate_scaling_total", "scaling_size", "calculate_scale",
-           "sat_floor_np", "AlignedAxes", "aligned_axes", "transform_buffer",
-           "scale_down_planar", "scale_down_srgb", "scale_down_srgb16"]
+           "sat_floor_np", "AlignedAxes", "aligned_axes", "RotatedGeometry",
+           "rotated_geometry", "transform_buffer", "transform_buffer_planar",
+           "scale_down_planar", "scaled_demosaic", "scale_down_opbuf",
+           "scale_down_srgb", "scale_down_srgb16"]
 
 _f32 = np.float32
 
@@ -163,21 +180,170 @@ def _transform_aligned(planes: torch.Tensor, width, height, topleft, topright,
     return out if cfa is not None else out[:components]
 
 
+@dataclass(frozen=True)
+class RotatedGeometry:
+    """Host window geometry of a rotated resample, separable into a row
+    term and a column term per quantity: rows [6, nh] and cols [6, nw]
+    float32, in the order from_y, to_y, from_x, to_x, centre_y, centre_x.
+    The source window of
+    output pixel (r, c) is [floor(rows[0, r] + cols[0, c]), floor(rows[1,
+    r] + cols[1, c])] in y (saturated to [0, H-1]) and likewise 2/3 in x;
+    its centre is rows[4/5, r] + cols[4/5, c]. sxx and syy divide dx and
+    dy; k_x, k_y bound the window loop."""
+    rows: np.ndarray
+    cols: np.ndarray
+    sxx: np.float32
+    syy: np.float32
+    k_x: int
+    k_y: int
+
+
+def _bound(a, b, width, height) -> int:
+    """The static window bound of `_transform_impl` (scaling.py:136-142 of
+    the JAX package): non-finite skips count 0."""
+    s = (0.0 if not math.isfinite(float(a)) else abs(float(a))) + (
+        0.0 if not math.isfinite(float(b)) else abs(float(b)))
+    return max(1, min(int(math.ceil(s)) + 2, max(width, height)))
+
+
+def rotated_geometry(width, height, topleft, topright, bottomleft, nwidth,
+                     nheight) -> RotatedGeometry:
+    """The index math of scaling.rs:69-89 for any affine geometry, in the
+    reference's float32 order (`_transform_impl` :88-142 of the JAX
+    package): per-axis skips by f32 division (inf or NaN when an output
+    extent is 1), products rounded before each add."""
+    tl0, tl1 = _f32(topleft[0]), _f32(topleft[1])
+    tr0, tr1 = _f32(topright[0]), _f32(topright[1])
+    bl0, bl1 = _f32(bottomleft[0]), _f32(bottomleft[1])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sxx = _f32((tr0 - tl0) / _f32(nwidth - 1))
+        sxy = _f32((tr1 - tl1) / _f32(nwidth - 1))
+        syx = _f32((bl0 - tl0) / _f32(nheight - 1))
+        syy = _f32((bl1 - tl1) / _f32(nheight - 1))
+    r = np.arange(nheight, dtype=_f32)
+    c = np.arange(nwidth, dtype=_f32)
+    one, half, two = _f32(1.0), _f32(0.5), _f32(2.0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        rows = np.stack([
+            tl1 + syy * r, tl1 + syy * (r + one),
+            tl0 + syx * r, tl0 + syx * (r + one),
+            tl1 + syy * r + (syy / two) - half,
+            tl0 + syx * r + (syx / two) - half]).astype(_f32)
+        cols = np.stack([
+            sxy * c, sxy * (c + one),
+            sxx * c, sxx * (c + one),
+            sxy * c + (sxy / two),
+            sxx * c + (sxx / two)]).astype(_f32)
+    return RotatedGeometry(rows, cols, sxx, syy, _bound(sxx, syx, width, height),
+                           _bound(sxy, syy, width, height))
+
+
+def _sat_idx(v: torch.Tensor, maxv: int) -> torch.Tensor:
+    """NaN -> 0, floor, clip to [0, maxv] (Rust's saturating `as usize`)."""
+    v = torch.where(torch.isnan(v), 0.0, v)
+    return torch.clamp(torch.floor(v), 0.0, float(maxv)).to(torch.int64)
+
+
+def _transform_rotated(planes: torch.Tensor, width, height, topleft, topright,
+                       bottomleft, nwidth, nheight, components, cfa=None):
+    """planes [C, H, W] float32 (C=1 with `cfa`) -> [C', nh, nw] float32,
+    C' = 4 with a CFA, else `components`: `_transform_impl` of the JAX
+    package as an eager windowed gather. Every output pixel walks the same
+    K_y x K_x window offsets (ky outer, kx inner); a sample counts where
+    from + k <= to on both axes."""
+    dev = planes.device
+    f = torch.float32
+    g = rotated_geometry(width, height, topleft, topright, bottomleft, nwidth, nheight)
+    rows, cols = torch.from_numpy(g.rows).to(dev), torch.from_numpy(g.cols).to(dev)
+
+    def pixel(i):     # the one device add of a row and a column term
+        return rows[i][:, None] + cols[i][None, :]
+
+    from_y, to_y = _sat_idx(pixel(0), height - 1), _sat_idx(pixel(1), height - 1)
+    from_x, to_x = _sat_idx(pixel(2), width - 1), _sat_idx(pixel(3), width - 1)
+    centre_y, centre_x = pixel(4), pixel(5)
+    sxx, syy = _scalar(g.sxx, dev), _scalar(g.syy, dev)
+
+    flat = planes.reshape(planes.shape[0], -1)
+    if cfa is not None:
+        tile = torch.from_numpy(cfa.pattern_tile().astype(np.int64)).to(dev)
+        nt = tile.shape[0]
+        channels = torch.arange(4, device=dev)[:, None, None]
+        nsum = 4
+    else:
+        nsum = planes.shape[0]
+    sums = torch.zeros((nsum, nheight, nwidth), dtype=f, device=dev)
+    counts = torch.zeros((nsum if cfa is not None else 1, nheight, nwidth),
+                         dtype=f, device=dev)
+
+    for ky in range(g.k_y):
+        y = from_y + ky
+        valid_y = y <= to_y
+        yc = torch.clamp(y, max=height - 1)
+        dy = (y.to(f) - centre_y) / syy
+        dy2 = dy * dy
+        for kx in range(g.k_x):
+            x = from_x + kx
+            xc = torch.clamp(x, max=width - 1)
+            dx = (x.to(f) - centre_x) / sxx
+            # factor = (1 - dx^2) - dy^2; where(f < 0) keeps a NaN.
+            factor = (1.0 - dx * dx) - dy2
+            factor = torch.where(factor < 0.0, 0.0, factor)
+            w = torch.where(valid_y & (x <= to_x), factor, 0.0)
+            val = flat[:, yc * width + xc]                     # [C, nh, nw]
+            if cfa is None:
+                sums = sums + val * w
+                counts = counts + w
+                continue
+            onehot = tile[yc % nt, xc % nt][None] == channels  # [4, nh, nw]
+            sums = sums + torch.where(onehot, (val[0] * w)[None], 0.0)
+            counts = counts + torch.where(onehot, w[None], 0.0)
+    out = torch.where(counts > 0.0, sums / counts, 0.0)
+    return out if cfa is not None else out[:components]
+
+
+def _is_aligned(topleft, topright, bottomleft, nwidth, nheight) -> bool:
+    return (int(topright[1]) == int(topleft[1])
+            and int(bottomleft[0]) == int(topleft[0])
+            and nwidth > 1 and nheight > 1)
+
+
+def transform_buffer_planar(src_chw: torch.Tensor, width, height, topleft,
+                            topright, bottomleft, nwidth, nheight, components,
+                            cfa=None) -> torch.Tensor:
+    """The resampler on a planar [C, H, W] tensor -> [C', nh, nw] float32
+    (C' = 4 with `cfa`, else `components`). Axis-aligned geometry runs the
+    eager aligned resampler; a rotated one without a CFA goes to
+    kernels/rotate.py (the CUDA kernel for a CUDA tensor, its plain version
+    on the CPU), with a CFA to `_transform_rotated` on the CPU."""
+    width, height, nwidth, nheight, components = (
+        int(v) for v in (width, height, nwidth, nheight, components))
+    src_chw = src_chw.to(torch.float32)
+    if _is_aligned(topleft, topright, bottomleft, nwidth, nheight):
+        return _transform_aligned(src_chw, width, height, topleft, topright,
+                                  bottomleft, nwidth, nheight, components, cfa)
+    if cfa is not None:
+        if src_chw.device.type != "cpu":
+            raise NotImplementedError(
+                "CFA-aware rotated resample on CUDA: ROADMAP A12")
+        return _transform_rotated(src_chw, width, height, topleft, topright,
+                                  bottomleft, nwidth, nheight, components, cfa)
+    from .kernels import rotate as krot
+
+    return krot.rotate_resample_planar(
+        src_chw[:components].contiguous(), width, height, topleft, topright,
+        bottomleft, nwidth, nheight, components)
+
+
 def transform_buffer(src: torch.Tensor, width, height, topleft, topright,
                      bottomleft, nwidth, nheight, components, cfa=None,
                      out_dtype=torch.float32) -> torch.Tensor:
     """The resampler (scaling.rs:51-130) on an interleaved [H, W, C] tensor
-    -> [nh, nw, C']; integer outputs truncate and saturate like Rust `as`.
-    Axis-aligned geometry only."""
-    aligned = (int(topright[1]) == int(topleft[1])
-               and int(bottomleft[0]) == int(topleft[0])
-               and nwidth > 1 and nheight > 1)
-    if not aligned:
-        raise NotImplementedError("rotated resample (rotatecrop): ROADMAP A9")
+    -> [nh, nw, C']; integer outputs truncate and saturate like Rust `as`."""
     src = src if src.dim() == 3 else src[..., None]
-    out = _transform_aligned(src.to(torch.float32).permute(2, 0, 1), int(width),
-                             int(height), topleft, topright, bottomleft,
-                             int(nwidth), int(nheight), int(components), cfa)
+    out = transform_buffer_planar(src.to(torch.float32).permute(2, 0, 1), width,
+                                  height, topleft, topright, bottomleft, nwidth,
+                                  nheight, components, cfa)
     out = out.permute(1, 2, 0)
     if out_dtype == torch.float32:
         return out
@@ -193,6 +359,25 @@ def scale_down_planar(src_chw: torch.Tensor, nwidth: int, nheight: int,
     return _transform_aligned(src_chw.to(torch.float32), int(width), int(height),
                               (0, 0), (int(width) - 1, 0), (0, int(height) - 1),
                               int(nwidth), int(nheight), int(components), cfa)
+
+
+def scaled_demosaic(cfa, buf: OpBuffer, nwidth: int, nheight: int) -> OpBuffer:
+    """Demosaic fused with downscale in one pass (scaling.rs:132-145): each
+    output pixel averages its CFA-aware source window."""
+    assert buf.colors == 1
+    data = transform_buffer_planar(
+        buf.data, buf.width, buf.height, (0, 0), (buf.width - 1, 0),
+        (0, buf.height - 1), nwidth, nheight, 4, cfa)
+    return OpBuffer(nwidth, nheight, 4, buf.monochrome, data)
+
+
+def scale_down_opbuf(buf: OpBuffer, nwidth: int, nheight: int) -> OpBuffer:
+    """Plain 4-channel downscale (scaling.rs:147-160)."""
+    assert buf.colors == 4
+    data = transform_buffer_planar(
+        buf.data, buf.width, buf.height, (0, 0), (buf.width - 1, 0),
+        (0, buf.height - 1), nwidth, nheight, 4)
+    return OpBuffer(nwidth, nheight, 4, buf.monochrome, data)
 
 
 def _scale_down_srgb(data: torch.Tensor, nwidth, nheight, out_dtype):

@@ -101,9 +101,11 @@ def test_plan_from_jax_carries_params():
 
 
 def test_resize_paths_not_ported():
-    """The thumbnail paths develop (tests/test_torch_scaled.py holds them to
-    the JAX package); the resize left unported is the rotated resample
-    behind rotatecrop, which raises naming its ROADMAP item."""
+    """Every resize path is ported now. The thumbnail paths develop
+    (tests/test_torch_scaled.py holds them to the JAX package), and the
+    rotated resample behind rotatecrop, which raised ROADMAP A9 until it
+    was ported, agrees with the JAX package's public entry
+    (tests/test_torch_rotate.py holds it in detail)."""
     from imagepipe_tpu_torch.scaling import transform_buffer
 
     raw = synthetic_bayer(168, 112)
@@ -114,6 +116,10 @@ def test_resize_paths_not_ported():
     tplan = tengine.plan_from_jax(plan, "cpu")
     got = tengine.develop_fused(tplan, torch.from_numpy(raw.data))
     _assert_contract(np.asarray(develop_fused(plan, raw.data)), got.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        transform_buffer(torch.zeros((112, 168, 3)), 168, 112, (5, 2), (160, 12),
-                         (-3, 100), 40, 26, 3)
+    from imagepipe_tpu.scaling import transform_buffer as jax_transform_buffer
+
+    src = np.random.default_rng(0).random((112, 168, 3), dtype=np.float32)
+    got = transform_buffer(torch.from_numpy(src), 168, 112, (5, 2), (160, 12), (-3, 100),
+                           40, 26, 3)
+    want = jax_transform_buffer(src, 168, 112, (5, 2), (160, 12), (-3, 100), 40, 26, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=2e-6)

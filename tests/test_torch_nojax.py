@@ -2,7 +2,9 @@
 
 * In a fresh interpreter, import `imagepipe_tpu_torch`, write a small DNG
   and a TIFF-EP (`tests/tiffgen.py`), decode and develop them on the CPU to
-  8 and 16 bits and as a thumbnail, run the CLI and a `BatchEngine`; then
+  8 and 16 bits and as a thumbnail, run the CLI and a `BatchEngine`, render
+  a rotated frame staged with a stage cache and edit one through a
+  `RenderService`; then
   no module in `sys.modules` has a file under `imagepipe_tpu/`, and `jax`
   never loaded.
 * The port's host modules (decode, the RAW model, DNG/TIFF, the codecs, ...)
@@ -142,6 +144,19 @@ with open(erf, "wb") as f:
     f.write(b.bytes())
 assert decode.decode_file(erf).raw.data.shape == (32, 48)
 assert tip.Pipeline.new_from_file(erf, device="cpu").output_8bit().data.shape == (32, 48, 3)
+
+# The staged path: a rotated, cropped render through a stage cache, and an
+# edit through the render service.
+p = tip.Pipeline.new_from_file(path, device="cpu")
+p.ops.rotatecrop.rotation = 0.1
+p.ops.rotatecrop.crop_left = 0.05
+cache = tip.Pipeline.new_cache(64 << 20)
+assert p.output_8bit(cache).data.shape[2] == 3 and len(cache) == 8
+from imagepipe_tpu_torch.service import RenderService
+svc = RenderService(cache_bytes=64 << 20, device="cpu")
+svc.open_file("tiny", path)
+assert svc.edit("tiny", {"rotatecrop": {"rotation": 0.05}}).data.shape[2] == 3
+assert len(svc.cache) == 8
 
 outs = BatchEngine(devices=["cpu"], max_batch=2).develop_files([path, path, erf])
 assert [o.shape for o in outs] == [(48, 64, 3), (48, 64, 3), (32, 48, 3)]

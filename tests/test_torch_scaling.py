@@ -136,6 +136,16 @@ def test_host_index_math_matches_jax():
 
 
 def test_rotated_geometry_raises():
-    src = torch.zeros((40, 50, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tscaling.transform_buffer(src, 50, 40, (5, 2), (44, 12), (-3, 33), 37, 29, 3)
+    """A rotated geometry raised ROADMAP A9 until the rotated resampler was
+    ported; now only its CFA-aware form raises, and only off the CPU
+    (ROADMAP A12). On the CPU the geometry of
+    tests/test_rotate_pallas.py::test_affine_gather_impl_matches_oracle
+    matches the scalar oracle within that test's 1e-5."""
+    src = np.random.default_rng(3).random((40, 50, 3), dtype=np.float32)
+    got = tscaling.transform_buffer(torch.from_numpy(src), 50, 40, (5, 2), (44, 12), (-3, 33),
+                                    37, 29, 3)
+    want = oracle.transform_buffer(src.ravel(), 50, 40, (5, 2), (44, 12), (-3, 33), 37, 29, 3)
+    np.testing.assert_allclose(got.numpy(), want.reshape(29, 37, 3), rtol=0, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        tscaling.transform_buffer(torch.zeros((40, 50, 1), device="meta"), 50, 40, (5, 2),
+                                  (44, 12), (-3, 33), 37, 29, 4, cfa=CFA("RGGB"))
