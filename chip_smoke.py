@@ -8,12 +8,16 @@ Phases, each ending in torch.cuda.synchronize():
      csrc/ (develop.cu, develop_scaled.cu and rotate.cu, one nvcc each, in
      parallel);
   1. each kernel against its plain PyTorch version on the card, at full
-     size. The develop kernel: 24 MP Bayer 8-bit and 16-bit linear, 26 MP
+     size, and the proof that the kernels' reciprocal-multiply division
+     (finish.cuh div_rcp) equals the IEEE one for every input they give it. The develop kernel: 24 MP Bayer 8-bit and 16-bit linear, 26 MP
      X-Trans, 24 MP mono, a Rotate90 frame and a cropped frame. The
      scaled-demosaic kernel: 24 MP Bayer to 2048, 1024, 320 and 160 wide,
      to 1024 at 16-bit linear, 26 MP X-Trans, Rotate90 and odd-crop frames
-     and 61 MP to 1024. Contract: max |diff| <= 1 LSB and fewer than 2% of
-     values differing;
+     and 61 MP to 1024. The tile edges: 24 MP Bayer and 26 MP X-Trans
+     frames cropped at the odd origin (11, 3) to a width one pixel past a
+     multiple of the develop kernel's 128-pixel tile (6017 and 6145), 8-bit
+     and 16-bit, and the same frames to 1024 and 160 wide. Contract: max
+     |diff| <= 1 LSB and fewer than 2% of values differing;
   2. the main paths, each with the launch counts set to 0 just before it
      and read just after. Full size: a 24 MP Bayer DNG through
      Pipeline.new_from_file -> output_8bit (default, exposure +0.3, custom
@@ -56,18 +60,23 @@ Phases, each ending in torch.cuda.synchronize():
      host ms (each stage synchronized), the device's idle share under
      torch.profiler, and the cache's total_bytes beside the device memory
      it holds;
-  3. kernels and plain versions timed with CUDA events, interleaved,
-     median of 7: the develop kernel at 24 MP 8-bit, the scaled kernel at
-     24 MP to 2048, 1024 and 160, the rotate kernel at the three 24 MP
-     geometries of phase 1c; the host wall time and breakdown of a cached
-     1024-px request; the edit requests of phase 2c (first render,
-     exposure edit, rotation edit) to host pixels;
+  3. the kernels timed like for like (scripts/time_develop_kernels.py):
+     device ms per launch over 24 launches back to back behind a device
+     sleep, rotating over 3 distinct inputs so each 24 MP plane is read
+     cold, median of 5, with one call from idle beside it (the wrapper's
+     host path): the develop kernel at 24 MP Bayer 8-bit and 16-bit and
+     26 MP X-Trans, the scaled kernel at 24 MP to 2048, 1024, 160 and 1024
+     at 16-bit, both batched at B=8; the rotate kernel the same way at the
+     three 24 MP geometries of phase 1c; plain versions one call from idle,
+     median of 5; the host wall time and breakdown of a cached 1024-px
+     request; the edit requests of phase 2c (first render, exposure edit,
+     rotation edit) to host pixels;
   3b. the batch path timed: develop_files throughput of the 16 Bayer files
      (source MP/s, full size and to 1024), its host split (decode, plan,
      staging, dispatch, wait, scatter) and, under torch.profiler, its
      device split (H2D, kernel, D2H) and idle share; a batched launch at
-     B=8 against a loop of 8 single launches and the plain version, 24 MP
-     8-bit and to 1024.
+     B=8 against a loop of 8 single launches (device ms back to back) and
+     the plain version (one call from idle), 24 MP 8-bit and to 1024.
 
 It prints a JSON line of per-kernel results (launches on the main path,
 max |diff| against the plain version, times, and the bound: the least time
@@ -110,33 +119,23 @@ from imagepipe_tpu_torch.scaling import rotated_geometry
 from imagepipe_tpu_torch.service import RenderService
 from imagepipe_tpu_torch.sources import ImageSource, image_content_hash
 
+sys.path.insert(1, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+import time_develop_kernels as tdk  # noqa: E402
+
 BAYER = (6000, 4000)
 XTRANS = (6240, 4168)
 BIG = (9504, 6336)
-THUMB_WIDTHS = (2048, 1024, 160)      # timed in phase 3
-TIMED_RUNS = 7
-BATCH = 8                             # max_batch of the batch path
+# Cropped sizes of phase 1's tile-edge frames: widths 47 * 128 + 1 and
+# 48 * 128 + 1.
+EDGE_BAYER = (6017, 4000)
+EDGE_XTRANS = (6145, 4168)
+PLAIN_RUNS = 5                        # one-call timings of plain versions and requests
+BATCH = tdk.BATCH                     # max_batch of the batch path
 BATCH_THUMB = 1024                    # thumbnail width of the batch path
-BATCH_REPS = 4                        # calls per timing of a batched launch
 
-# The card's peaks (NVIDIA's H100 SXM data sheet, at its 700 W limit):
-# device memory rate and float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# Float32 operations the kernels do, counted from csrc/ (an FMA counts 2;
-# expf, logf and a division 1 each; index arithmetic not counted).
-# finish.cuh per output pixel, 8-bit with gamma and no tone curve: WB 8,
-# camera matrix 21, XYZ scaling 3, three lab_f 24, L/A/B 11, Lab^-1 30,
-# XYZ->RGB 15, gamma 30, quantize 12.
-OPS_FINISH = 154
-# develop.cu's demosaic per pixel: levels (3) and accumulate (2) for each
-# sample, 7 samples on average over a Bayer quad (9 at R and B, 5 at G),
-# then four averages (2 each).
-OPS_DEMOSAIC_BAYER = 7 * 5 + 8
-# develop_scaled.cu per window sample (weight 3, levels 3, product 1, two
-# sums) and per output pixel (four averages, 2 each).
-OPS_WINDOW_SAMPLE = 9
-OPS_SCALED_PIXEL = 8
+# The card's peaks, the develop kernels' bounds and the like-for-like timing
+# (device ms over launches back to back, cold inputs) are the timing
+# script's: scripts/time_develop_kernels.py.
 # rotate.cu per window sample: dx (sub, div), dx^2, two subs for the
 # weight, a product and a sum per channel, the count sum; per window row:
 # dy (sub, div) and dy^2; per output pixel: 6 adds of row and column terms
@@ -205,9 +204,10 @@ def _upload(raw, device):
     return torch.from_numpy(np.ascontiguousarray(raw.data)).to(device)
 
 
-def phase1(device, bayer, xtrans, big) -> tuple[int, int]:
-    """Each kernel vs its plain version at full size; returns the largest
-    |diff| of the develop and of the scaled kernel."""
+def phase1(device, bayer, xtrans, big, edges=(EDGE_BAYER, EDGE_XTRANS)) -> tuple[int, int]:
+    """Each kernel vs its plain version at full size, and at the tile edges
+    (`edges`: the cropped sizes of a Bayer and an X-Trans frame); returns
+    the largest |diff| of the develop and of the scaled kernel."""
     bw, bh = bayer
     base = traw.synthetic_bayer(bw, bh, seed=0)
     rotated = copy.copy(base)              # the same sensor data
@@ -223,13 +223,36 @@ def phase1(device, bayer, xtrans, big) -> tuple[int, int]:
         ("bayer cropped 8-bit", cropped, 8),
     ]
     worst = 0
+    calibs = []
     for label, raw, bits in cases:
         plan = _plan(raw, bits, device)
+        calibs.append(plan)
         plane = _upload(raw, device)
         got = kdev.develop(plan, plane)
         want = kdev.develop_plain(plan, plane)
         _sync(device)
         worst = max(worst, _check(f"{label} {raw.width}x{raw.height}", got, want))
+
+    # Tile edges: odd crop origins (11, 3) and a cropped width one pixel
+    # past a multiple of the develop kernel's 128-pixel tile.
+    edge_raws = []
+    for kind, make, (w, h) in zip(("bayer", "x-trans"),
+                                  (traw.synthetic_bayer, traw.synthetic_xtrans), edges):
+        raw = make(w + 16, h + 10, seed=0)
+        raw.crops = (3, 5, 7, 11)
+        edge_raws.append((kind, raw))
+        for bits in (8, 16):
+            plan = _plan(raw, bits, device)
+            calibs.append(plan)
+            if (plan.crop_x, plan.crop_y, plan.width % 128) != (11, 3, 1):
+                raise AssertionError(f"{kind} edge frame: crop ({plan.crop_x}, {plan.crop_y}), "
+                                     f"width {plan.width}")
+            plane = _upload(raw, device)
+            got = kdev.develop(plan, plane)
+            want = kdev.develop_plain(plan, plane)
+            _sync(device)
+            worst = max(worst, _check(f"{kind} odd crop (11, 3), {plan.width}x{plan.height} "
+                                      f"{bits}-bit", got, want))
 
     odd = traw.synthetic_bayer(bw + 16, bh + 10, seed=0)
     odd.crops = (3, 5, 7, 11)              # odd origin on both axes
@@ -239,7 +262,8 @@ def phase1(device, bayer, xtrans, big) -> tuple[int, int]:
         ("bayer Rotate90 -> 1024", rotated, 1024, 8),
         ("bayer odd crop -> 1024", odd, 1024, 8),
         ("bayer 61 MP -> 1024", traw.synthetic_bayer(*big, seed=0), 1024, 8),
-    ]
+    ] + [(f"{kind} odd crop (11, 3) -> {w}", raw, w, 8) for kind, raw in edge_raws
+                                                     for w in (1024, 160)]
     worst_scaled = 0
     for label, raw, maxwidth, bits in thumbs:
         plan = _plan(raw, bits, device, maxwidth=maxwidth)
@@ -253,7 +277,34 @@ def phase1(device, bayer, xtrans, big) -> tuple[int, int]:
             raise AssertionError(f"{label}: shape {tuple(got.shape)}")
         worst_scaled = max(worst_scaled, _check(
             f"{label} {raw.width}x{raw.height} -> {plan.dem_w}x{plan.dem_h}", got, want))
+    if device.type == "cuda":
+        _division_proof(device, calibs)
     return worst, worst_scaled
+
+
+def _division_proof(device, plans) -> None:
+    """finish.cuh's div_rcp must give the IEEE quotient (__fdiv_rn) for
+    every input the kernels feed it: every float dividend of each constant
+    divisor of the back end; all 65,536 u16 raws for the levels of each
+    calibration of phase 1 and of a seeded sweep of 256 more (black, range)
+    pairs; all 2^32 float raws for two of them (f32 planes)."""
+    run = sorted({tuple(float(v) for v in kdev.calib_tables(p)[0][0, :2]) for p in plans})
+    rng = np.random.default_rng(0)
+    sweep = [(b, r) for b in (0.0, 64.0, 512.0, 1024.0, 2047.5) for r in (1.0, 0.37, 255.0, 4095.0,
+                                                                         15871.0, 16383.0, 65535.0)]
+    sweep += list(zip(rng.uniform(0, 4096, 256 - len(sweep)).astype(np.float32).tolist(),
+                      rng.uniform(1, 65536, 256 - len(sweep)).astype(np.float32).tolist()))
+    t = time.perf_counter()
+    res = kdev.division_mismatches(run + sweep, [run[0], sweep[-1]], device)
+    ms = (time.perf_counter() - t) * 1e3
+    want = {"constants": 1 << 32, "levels": len(run + sweep) << 16, "levels_f32": 2 << 32}
+    print(f"  div_rcp vs __fdiv_rn, mismatches: constant divisors {res['constants']}; levels of "
+          f"{len(run)} run calibrations {run} and {len(sweep)} swept (u16 raws) "
+          f"{sum(res['levels'])}; levels over float raws {res['levels_f32']}; inputs tried "
+          f"{res['checked']} (want {want}) ({ms:.1f} ms)")
+    if (any(res["constants"]) or any(res["levels"]) or any(res["levels_f32"])
+            or res["checked"] != want):
+        raise AssertionError(f"div_rcp differs from the IEEE division: {res}")
 
 
 def phase2(device, bayer) -> tuple[int, int]:
@@ -405,62 +456,10 @@ def _fulldown_and_raster(device, path, td):
     _check("raster 4000x3000 -> 1024, card vs CPU", outs[0], outs[1])
 
 
-def _time_ms(fn, device, reps=1) -> float:
-    """Device ms of one call, timed with CUDA events around `reps` calls
-    back to back (from an idle device: with reps=1 the call's host path
-    before its launch counts too)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / reps
-
-
-def _in_turns(fns: dict, device, reps=1) -> dict:
-    """{name: (median device ms, runs)} of each function, timed in turns
-    (the order rotating every round) after a warm-up of two calls each."""
-    for _ in range(2):
-        for fn in fns.values():
-            fn()
-    torch.cuda.synchronize(device)
-    runs = {name: [] for name in fns}
-    names = list(fns)
-    for i in range(TIMED_RUNS):
-        order = names[i % len(names):] + names[:i % len(names)]
-        for name in (order if i % 2 == 0 else order[::-1]):
-            runs[name].append(_time_ms(fns[name], device, reps))
-    return {name: (statistics.median(r), r) for name, r in runs.items()}
-
-
-def _bound(read_bytes, write_bytes, ops) -> tuple[float, str]:
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the float32 operations over the float32 rate."""
-    by_bytes = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def develop_bound(plan, plane) -> tuple[float, str]:
-    """The develop kernel's bound for one Bayer plane: the cropped plane
-    read once, the quantized planes written once, the counted operations."""
-    px = plan.height * plan.width
-    return _bound(px * plane.element_size(), 3 * px * plan.out_bits // 8,
-                  px * (OPS_DEMOSAIC_BAYER + OPS_FINISH))
-
-
-def scaled_bound(plan, plane) -> tuple[float, str]:
-    """The scaled kernel's bound for one plane: the cropped plane read once,
-    the thumbnail written once, and the operations of the window samples
-    this geometry has (from its tables) and of each output pixel."""
-    g = {k: v.cpu().numpy().astype(np.int64) for k, v in kds.scaled_geometry(plan).items()
-         if k in ("from_x", "to_x", "from_y", "to_y")}
-    samples = int((g["to_x"] - g["from_x"] + 1).sum()) * int((g["to_y"] - g["from_y"] + 1).sum())
-    out_px = plan.dem_h * plan.dem_w
-    return _bound(plan.height * plan.width * plane.element_size(), 3 * out_px * plan.out_bits // 8,
-                  samples * OPS_WINDOW_SAMPLE + out_px * (OPS_SCALED_PIXEL + OPS_FINISH))
+def _plain_ms(fn, device) -> float:
+    """A plain version's ms: one call from an idle device, CUDA events,
+    median of PLAIN_RUNS after a warm-up call."""
+    return tdk.from_idle_ms(fn, device, PLAIN_RUNS)
 
 
 def _timing(name, ms, plain_ms, bound, batch=1) -> dict:
@@ -468,44 +467,42 @@ def _timing(name, ms, plain_ms, bound, batch=1) -> dict:
                    "bound_by": bound[1]}}
 
 
-def phase3(device, bayer, card):
-    """Returns {kernel name: {ms, plain_ms, bound_ms, bound_by}}: the develop
-    kernel at 24 MP 8-bit, the scaled kernel at 24 MP -> 1024."""
-    raw = traw.synthetic_bayer(*bayer, seed=3)
-    plan = _plan(raw, 8, device)
-    plane = _upload(raw, device)
-    t = _in_turns({"kernel": lambda: kdev.develop(plan, plane),
-                   "plain": lambda: kdev.develop_plain(plan, plane)}, device)
-    (ms, k_ms), (pms, p_ms) = t["kernel"], t["plain"]
-    mp = bayer[0] * bayer[1] / 1e6
-    bound = develop_bound(plan, plane)
-    print(f"  develop kernel: {ms:.4f} ms median of {TIMED_RUNS} ({mp / ms * 1e3:.1f} MP/s), "
-          f"runs {[round(t, 4) for t in k_ms]}; bound {bound[0]:.4f} ms by {bound[1]}")
-    print(f"  plain version:  {pms:.4f} ms median of {TIMED_RUNS} ({mp / pms * 1e3:.1f} MP/s), "
-          f"runs {[round(t, 4) for t in p_ms]}")
-    print(f"  ({mp:.0f} MP Bayer 8-bit, CUDA events, on {card})")
-    times = _timing("develop", ms, pms, bound)
+def _show(label, t, card) -> None:
+    print(f"  {label}: {t['ms']:.4f} ms device, launches back to back (runs {t['runs']}"
+          f"{', HOST-BOUND' if t['host_bound'] else ''}); {t['from_idle_ms']:.4f} ms one call "
+          f"from idle (the difference is the wrapper's host path); bound {t['bound_ms']:.4f} ms "
+          f"by {t['bound_by']} (on {card})")
 
-    for width in THUMB_WIDTHS:
-        tplan = _plan(raw, 8, device, maxwidth=width)
-        t = _in_turns({"kernel": lambda: kds.develop_scaled(tplan, plane),
-                       "plain": lambda: kds.develop_scaled_plain(tplan, plane)}, device)
-        (sms, k_ms), (spms, p_ms) = t["kernel"], t["plain"]
-        sbound = scaled_bound(tplan, plane)
-        print(f"  scaled kernel -> {tplan.dem_w}x{tplan.dem_h}: {sms:.4f} ms, plain "
-              f"{spms:.4f} ms (medians of {TIMED_RUNS}; kernel runs "
-              f"{[round(t, 4) for t in k_ms]}, plain runs {[round(t, 4) for t in p_ms]}); "
-              f"bound {sbound[0]:.4f} ms by {sbound[1]}")
-        if width == 1024:
-            times.update(_timing("develop_scaled", sms, spms, sbound))
-    print(f"  ({mp:.0f} MP Bayer source, 8-bit, CUDA events, on {card})")
+
+def phase3(device, bayer, card):
+    """The develop kernels timed like for like (scripts/time_develop_kernels.py:
+    device ms per launch, 24 launches back to back over 3 distinct cold
+    inputs, median of 5; one call from idle beside it), their plain versions
+    from idle, and a cached 1024-px request. Returns {kernel name: {ms,
+    plain_ms, bound_ms, bound_by}} for the single and batched kernels."""
+    kt = tdk.kernel_times(device)
+    for label, t in kt.items():
+        _show(label, t, card)
+    raw = traw.synthetic_bayer(*bayer, seed=3)
+    plane = _upload(raw, device)
+    plan = _plan(raw, 8, device)
+    pms = _plain_ms(lambda: kdev.develop_plain(plan, plane), device)
+    tplan = _plan(raw, 8, device, maxwidth=1024)
+    spms = _plain_ms(lambda: kds.develop_scaled_plain(tplan, plane), device)
+    print(f"  plain versions, one call from idle, median of {PLAIN_RUNS}: develop 24 MP Bayer "
+          f"8-bit {pms:.4f} ms, develop_scaled -> 1024 {spms:.4f} ms (on {card})")
+    times = {}
+    for name, label, plain_ms in (("develop", "develop 24 MP Bayer 8-bit", pms),
+                                  ("develop_scaled", "develop_scaled 24 MP Bayer -> 1024x682", spms)):
+        t = kt[label]
+        times.update(_timing(name, t["ms"], plain_ms, (t["bound_ms"], t["bound_by"])))
 
     # A cached 1024-px request: plan and plane on the card, and its parts.
     pipe = ipt.Pipeline.new_from_source(ImageSource.from_raw(raw), device)
     pipe.globals.settings.maxwidth = 1024
     pipe.output_8bit(None)
     walls = []
-    for _ in range(TIMED_RUNS):
+    for _ in range(PLAIN_RUNS):
         t = time.perf_counter()
         pipe.output_8bit(None)
         walls.append((time.perf_counter() - t) * 1e3)
@@ -521,8 +518,8 @@ def phase3(device, bayer, card):
     out.cpu()
     d2h_ms = (time.perf_counter() - t) * 1e3
     print(f"  cached 1024-px output_8bit: host wall {statistics.median(walls):.4f} ms median of "
-          f"{TIMED_RUNS}, runs {[round(w, 4) for w in walls]}; upload of the u16 plane "
-          f"{up_ms:.4f} ms (once per frame), kernel {times['develop_scaled']['ms']:.4f} ms, "
+          f"{PLAIN_RUNS}, runs {[round(w, 4) for w in walls]}; upload of the u16 plane "
+          f"{up_ms:.4f} ms (once per frame), kernel {times['develop_scaled']['ms']:.4f} ms device, "
           f"D2H of the {out.numel()} B output {d2h_ms:.4f} ms (on {card})")
     return times
 
@@ -745,24 +742,25 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> dict:
     cpu = torch.device("cpu")
     times = {}
     for maxwidth, batched, single, plain, bound_of, name in (
-            (0, kdev.develop_batch, kdev.develop, kdev.develop_batch_plain, develop_bound,
+            (0, kdev.develop_batch, kdev.develop, kdev.develop_batch_plain, tdk.develop_bound,
              "develop_batch"),
             (BATCH_THUMB, kds.develop_scaled_batch, kds.develop_scaled, kds.develop_scaled_batch_plain,
-             scaled_bound, "develop_scaled_batch")):
+             tdk.scaled_bound, "develop_scaled_batch")):
         plans = [_plan(r, 8, cpu, numerics="direct", maxwidth=maxwidth) for r in raws]
         on_card = [p.to(device) for p in plans]
-        t = _in_turns({"batched": lambda: batched(plans, planes),
-                       "loop": lambda: [single(p, planes[i]) for i, p in enumerate(plans)],
-                       "plain": lambda: plain(on_card, planes)}, device, reps=BATCH_REPS)
+        t = {"batched": tdk.device_ms([lambda: batched(plans, planes)], device),
+             "loop": tdk.device_ms([lambda: [single(p, planes[i]) for i, p in enumerate(plans)]],
+                                   device),
+             "plain": {"ms": _plain_ms(lambda: plain(on_card, planes), device)}}
         bound = bound_of(plans[0], planes[0])
-        runs = {k: [round(x, 4) for x in v[1]] for k, v in t.items()}
         print(f"  {name} B={BATCH} (24 MP {f'-> {maxwidth}' if maxwidth else '8-bit'}): "
-              f"batched {t['batched'][0]:.4f} ms ({t['batched'][0] / BATCH:.4f} ms/image), "
-              f"loop of single launches {t['loop'][0]:.4f} ms ({t['loop'][0] / BATCH:.4f} "
-              f"ms/image), plain {t['plain'][0]:.4f} ms; bound {bound[0] * BATCH:.4f} ms by "
-              f"{bound[1]}; runs {runs} (CUDA events over {BATCH_REPS} calls back to back, "
-              f"medians of {TIMED_RUNS}, on {card})")
-        times.update(_timing(name, t["batched"][0], t["plain"][0], bound, BATCH))
+              f"batched {t['batched']['ms']:.4f} ms ({t['batched']['ms'] / BATCH:.4f} ms/image), "
+              f"loop of single launches {t['loop']['ms']:.4f} ms ({t['loop']['ms'] / BATCH:.4f} "
+              f"ms/image), plain {t['plain']['ms']:.4f} ms; bound {bound[0] * BATCH:.4f} ms by "
+              f"{bound[1]}; device ms of calls back to back (batched runs {t['batched']['runs']}, "
+              f"loop runs {t['loop']['runs']}{', HOST-BOUND' if t['loop']['host_bound'] else ''}), "
+              f"plain one call from idle (on {card})")
+        times.update(_timing(name, t["batched"]["ms"], t["plain"]["ms"], bound, BATCH))
     return times
 
 
@@ -933,7 +931,7 @@ def rotate_bound(channels, height, width, geometry) -> tuple[float, str]:
     g = rotated_geometry(width, height, tl, tr, bl, nw, nh)
     per_px = (g.k_x * g.k_y * (OPS_ROTATE_SAMPLE + 2 * channels) + g.k_y * OPS_ROTATE_ROW
               + OPS_ROTATE_PIXEL + channels)
-    return _bound(channels * height * width * 4, channels * nh * nw * 4, nh * nw * per_px)
+    return tdk.roofline(channels * height * width * 4, channels * nh * nw * 4, nh * nw * per_px)
 
 
 def phase3c(device, bayer, card) -> dict:
@@ -945,17 +943,16 @@ def phase3c(device, bayer, card) -> dict:
     for label, rotation, crop in ROTATE_CASES:
         geometry = _rotatecrop_geometry(rotation, crop, width, height)
         tl, tr, bl, nw, nh = geometry
-        t = _in_turns({"kernel": lambda: krot.rotate_resample_planar(
-                           src, width, height, tl, tr, bl, nw, nh, 4),
-                       "plain": lambda: krot.rotate_resample_plain(
-                           src, width, height, tl, tr, bl, nw, nh, 4)},
-                      device, reps=BATCH_REPS)
-        (ms, k_ms), (pms, p_ms) = t["kernel"], t["plain"]
+        kernel = tdk.device_ms([lambda: krot.rotate_resample_planar(
+            src, width, height, tl, tr, bl, nw, nh, 4)], device)
+        ms = kernel["ms"]
+        pms = _plain_ms(lambda: krot.rotate_resample_plain(src, width, height, tl, tr, bl, nw, nh, 4),
+                        device)
         bound = rotate_bound(4, height, width, geometry)
-        print(f"  rotate kernel, [4, {height}, {width}] {label} -> {nw}x{nh}: {ms:.4f} ms, plain "
-              f"{pms:.4f} ms (medians of {TIMED_RUNS}; CUDA events over {BATCH_REPS} calls back "
-              f"to back; kernel runs {[round(x, 4) for x in k_ms]}, plain runs "
-              f"{[round(x, 4) for x in p_ms]}); bound {bound[0]:.4f} ms by {bound[1]} (on {card})")
+        print(f"  rotate kernel, [4, {height}, {width}] {label} -> {nw}x{nh}: {ms:.4f} ms device, "
+              f"launches back to back (runs {kernel['runs']}"
+              f"{', HOST-BOUND' if kernel['host_bound'] else ''}); plain {pms:.4f} ms one call "
+              f"from idle; bound {bound[0]:.4f} ms by {bound[1]} (on {card})")
         if not times:
             times.update(_timing("rotate", ms, pms, bound))
     del src

@@ -1,5 +1,6 @@
-// Full-size RAW develop for Hopper (sm_90a): one thread per output pixel,
-// blockIdx.z the image of a batch.
+// Full-size RAW develop for Hopper (sm_90a): a block develops a 128 x 8
+// tile of output pixels, four pixels along a row per thread, blockIdx.z the
+// image of a batch.
 //
 // Replaces the TPU kernel imagepipe_tpu/kernels/develop_pallas.py::
 // _develop_kernel (with its back end _finish_tile and _emit): levels,
@@ -11,17 +12,35 @@
 // _develop_pallas_batchgrid_jit and the loop of single launches
 // _develop_pallas_batch_jit. A single image is the launch with B = 1.
 //
-// What bounds it. Memory traffic is the floor: at 24 MP it reads 2 B/px of
-// u16 sensor data and writes 3 B/px (6 B/px at 16-bit), 120 MB or 0.036 ms
-// at 3.35 TB/s. So there is no staging: each thread reads its 3x3
-// neighbourhood straight from the uncropped plane (row stride plus crop
-// origin), neighbouring threads read neighbouring addresses, and the
-// overlap between neighbourhoods is served by L1/L2. The Pallas kernel's
-// 8/128-element halo padding was there for TPU DMA alignment only. This
-// simple form is far above that floor (about 1.3 ms at 24 MP on an H100
-// SXM at 700 W), which points at instruction issue rather than memory --
-// six accurate expf/logf, some fifteen IEEE divisions and eighteen integer
-// modulos per pixel. Not yet profiled; later tuning starts there.
+// What bounds it. Memory traffic is far from the limit: at 24 MP it reads
+// 2 B/px of u16 sensor data and writes 3 B/px (6 B/px at 16-bit), 120 MB
+// or 0.036 ms at 3.35 TB/s. Instruction issue is the limit, and the design
+// removes what is not the function's own work:
+//  * the block stages its tile plus a 1-pixel halo (10 x 130 samples) in
+//    shared memory, converted to levels as it loads them: one read and one
+//    division per input sample (finish::div_rcp, equal to the IEEE one),
+//    where each of the up to 9 threads that read a sample used to load and
+//    divide it again. Each thread issues its six loads before it converts
+//    any, so their latencies overlap;
+//  * the CFA phase (y mod ph, x mod pw) is computed once per thread and
+//    stepped along its four pixels; a host table per phase (demosaic_phases
+//    in kernels/develop.py) gives the colour of each of the 9 offsets (4 =
+//    not summed) and, for tiles whose halo lies inside the crop, the
+//    neighbour count of each colour, so those tiles take a path with no
+//    validity tests (the Pallas kernel's `interior` split). Border tiles
+//    count their valid neighbours;
+//  * an average by a count that is a power of two is a multiply by its
+//    exact reciprocal (the same rounded result as the division); other
+//    counts divide;
+//  * on a 2x2 CFA (Bayer) an interior pixel's two other colours are the
+//    plus and cross sums (R and B sites) or the row and column pairs (G
+//    sites), added in the reference's order: 8 adds and a few selects
+//    where the general path tests each of the 9 offsets against 4 colours;
+//  * calibration, spline knots and the phase table live in shared memory;
+//  * each thread stores its four pixels with one 32-bit (8-bit output) or
+//    64-bit (16-bit) store per plane where the row allows it.
+// What is left is mostly the back end (finish.cuh): some 400 of the ~550
+// instructions per pixel.
 //
 // Semantics (demosaic.rs, demosaic_full.py:44-51 of the JAX package):
 //  * a neighbour is valid iff it lies inside the CROPPED image, even where
@@ -45,6 +64,24 @@ namespace {
 
 using finish::to_float;
 
+constexpr int kThreadsX = 32;
+constexpr int kThreadsY = 8;
+constexpr int kThreads = kThreadsX * kThreadsY;
+constexpr int kPix = 4;                        // output pixels per thread, along a row
+constexpr int kTileW = kThreadsX * kPix;        // 128
+constexpr int kTileH = kThreadsY;              // 8
+constexpr int kHaloW = kTileW + 2;             // 130
+constexpr int kHaloH = kTileH + 2;             // 10
+constexpr int kStagePerThread = (kHaloH * kHaloW + kThreads - 1) / kThreads;   // 6
+constexpr int kMaxSmem = 232448;               // 227 KB, the most a block can have
+
+// Bytes of dynamic shared memory: the levels tile, the calibration, the
+// phase table (16 bytes per CFA phase). kernels/develop.py::develop_smem_bytes
+// mirrors it.
+constexpr int smem_bytes(int phases, int spline_stride) {
+  return 4 * kHaloH * kHaloW + 4 * finish::calib_floats(spline_stride) + 16 * phases;
+}
+
 struct DevelopArgs {
   const void* plane;        // B uncropped sensor planes, row-major
   long long row_stride;     // elements per sensor row
@@ -52,68 +89,193 @@ struct DevelopArgs {
   int crop_x, crop_y;       // crop origin on the sensor
   int height, width;        // cropped size = output size before flips
   finish::Calib calib;      // image 0's; image b's tables follow at b * stride
-  const uint8_t* pattern;   // [ph, pw] cropped CFA colours (0..3), shared
+  const uint4* phases;      // [ph * pw] per-phase tables (demosaic_phases), shared
   int ph, pw;
   int mono;
   void* out;                // [B, 3, height, width] u8 or u16
 };
 
+// Byte i (0..15) of a phase entry: 0..8 the colour of offset i in the
+// reference's order (0..3, 4 = not summed), 9..12 the neighbour count of
+// colour i - 9 when all 9 offsets are valid; on a 2x2 CFA, 13 and 14 the
+// colours of the two neighbour groups and 15 their kind (1: plus and cross,
+// 2: row and column; 0: take the general path).
+__device__ __forceinline__ int phase_byte(const uint4& e, int i) {
+  const uint32_t w = i < 4 ? e.x : i < 8 ? e.y : i < 12 ? e.z : e.w;
+  return static_cast<int>((w >> (8 * (i & 3))) & 0xffu);
+}
+
+// s / n, 0 for n == 0; a power-of-two n multiplies by its exact reciprocal,
+// which rounds as the division does.
+__device__ __forceinline__ float average(float s, int n) {
+  if (n == 0) return 0.0f;
+  if ((n & (n - 1)) == 0) return s * __int_as_float((127 - (__ffs(n) - 1)) << 23);
+  return s / static_cast<float>(n);
+}
+
+template <typename O>
+struct Packed;                 // a thread's four quantized values of one plane
+template <>
+struct Packed<uint8_t> {
+  using T = uint32_t;
+  static constexpr int kBits = 8;
+};
+template <>
+struct Packed<uint16_t> {
+  using T = unsigned long long;
+  static constexpr int kBits = 16;
+};
+
 template <typename T, typename O>
-__global__ void __launch_bounds__(256) develop_kernel(const DevelopArgs a) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= a.width || y >= a.height) return;
+__global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_lv = reinterpret_cast<float*>(smem);                  // [kHaloH][kHaloW]
+  float* s_cal = s_lv + kHaloH * kHaloW;                         // finish::load_calib
+  uint4* s_phase = reinterpret_cast<uint4*>(s_cal + finish::calib_floats(a.calib.spline_stride));
+
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
   const int b = blockIdx.z;
-  const finish::Calib calib = finish::image_calib(a.calib, b);
+  const int x0 = blockIdx.x * kTileW;
+  const int y0 = blockIdx.y * kTileH;
+  finish::load_calib(s_cal, a.calib, b, tid, kThreads);
+  for (int i = tid; i < a.ph * a.pw; i += kThreads) s_phase[i] = a.phases[i];
 
-  const T* __restrict__ plane = static_cast<const T*>(a.plane) + b * a.plane_stride
-      + static_cast<long long>(a.crop_y) * a.row_stride + a.crop_x;
-  const float black = calib.scal[0];
-  const float range = calib.scal[1];
-
-  float rgbe[4];
-  if (a.mono) {
-    const float v = fminf((to_float(plane[static_cast<long long>(y) * a.row_stride + x]) - black) / range, 1.0f);
-    rgbe[0] = v; rgbe[1] = v; rgbe[2] = v; rgbe[3] = 0.0f;
-  } else {
-    const uint8_t* __restrict__ pattern = a.pattern;
-    const int c0 = pattern[(y % a.ph) * a.pw + (x % a.pw)];
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float n[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // Stage the tile and its halo as levels; samples outside the crop are 0
+  // and never summed.
+  {
+    const T* __restrict__ plane = static_cast<const T*>(a.plane) + b * a.plane_stride
+        + static_cast<long long>(a.crop_y) * a.row_stride + a.crop_x;
+    const finish::Levels lv = finish::make_levels(a.calib.scal[b * 128], a.calib.scal[b * 128 + 1]);
+    T raw[kStagePerThread];
+    bool in[kStagePerThread];
 #pragma unroll
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int yy = y + dy;
-      if (yy < 0 || yy >= a.height) continue;
-#pragma unroll
-      for (int dx = -1; dx <= 1; ++dx) {
-        const int xx = x + dx;
-        if (xx < 0 || xx >= a.width) continue;
-        const int oc = pattern[(yy % a.ph) * a.pw + (xx % a.pw)];
-        // Same-colour neighbours are discarded: the centre keeps its own
-        // sample (demosaic.rs:87).
-        if (oc == c0 && (dy != 0 || dx != 0)) continue;
-        const float v = fminf((to_float(plane[static_cast<long long>(yy) * a.row_stride + xx]) - black) / range, 1.0f);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (oc == c) { s[c] += v; n[c] += 1.0f; }
-        }
-      }
+    for (int j = 0; j < kStagePerThread; ++j) {
+      const int e = tid + j * kThreads;
+      const int r = e / kHaloW, c = e - r * kHaloW;
+      const int yy = y0 - 1 + r, xx = x0 - 1 + c;
+      in[j] = e < kHaloH * kHaloW && yy >= 0 && yy < a.height && xx >= 0 && xx < a.width;
+      raw[j] = in[j] ? plane[static_cast<long long>(yy) * a.row_stride + xx] : T(0);
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) rgbe[c] = n[c] > 0.0f ? s[c] / n[c] : 0.0f;
+    for (int j = 0; j < kStagePerThread; ++j) {
+      const int e = tid + j * kThreads;
+      if (e < kHaloH * kHaloW) s_lv[e] = in[j] ? finish::levels(lv, to_float(raw[j])) : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const int y = y0 + threadIdx.y;
+  const int xs = x0 + threadIdx.x * kPix;
+  if (y >= a.height || xs >= a.width) return;
+  // The whole halo inside the crop: every neighbour is valid.
+  const bool interior = x0 >= 1 && y0 >= 1 && x0 + kTileW < a.width && y0 + kTileH < a.height;
+  const bool row_up = y >= 1, row_down = y + 1 < a.height;
+  const int prow = (y % a.ph) * a.pw;
+  int px = xs % a.pw;
+
+  using P = Packed<O>;
+  typename P::T q[3] = {0, 0, 0};
+  const float* centre = s_lv + (threadIdx.y + 1) * kHaloW + threadIdx.x * kPix + 1;
+#pragma unroll 1
+  for (int i = 0; i < kPix; ++i) {
+    const int x = xs + i;
+    if (x >= a.width) break;
+    const float* lv = centre + i;
+    float rgbe[4];
+    if (a.mono) {
+      const float v = lv[0];
+      rgbe[0] = v; rgbe[1] = v; rgbe[2] = v; rgbe[3] = 0.0f;
+    } else {
+      const uint4 e = s_phase[prow + px];
+      const int quad = phase_byte(e, 15);
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (interior && quad != 0) {
+        // A 2x2 CFA: the other two colours sum the plus and the cross (R and
+        // B sites) or the row and the column neighbours (G sites), in the
+        // reference's offset order; the counts, 4 or 2, divide exactly.
+        const float up = lv[-kHaloW], left = lv[-1], right = lv[1], down = lv[kHaloW];
+        float va, vb;
+        if (quad == 1) {
+          va = (((up + left) + right) + down) * 0.25f;
+          vb = (((lv[-kHaloW - 1] + lv[-kHaloW + 1]) + lv[kHaloW - 1]) + lv[kHaloW + 1]) * 0.25f;
+        } else {
+          va = (left + right) * 0.5f;
+          vb = (up + down) * 0.5f;
+        }
+        const int c0 = phase_byte(e, 4), ca = phase_byte(e, 13), cb = phase_byte(e, 14);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) rgbe[c] = c == c0 ? lv[0] : c == ca ? va : c == cb ? vb : 0.0f;
+      } else if (interior) {
+#pragma unroll
+        for (int o = 0; o < 9; ++o) {
+          const int code = phase_byte(e, o);
+          const float v = lv[(o / 3 - 1) * kHaloW + (o % 3 - 1)];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (code == c) s[c] += v;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) rgbe[c] = average(s[c], phase_byte(e, 9 + c));
+      } else {
+        int n[4] = {0, 0, 0, 0};
+        const bool col_left = x >= 1, col_right = x + 1 < a.width;
+#pragma unroll
+        for (int o = 0; o < 9; ++o) {
+          const int dy = o / 3 - 1, dx = o % 3 - 1;
+          const bool valid = (dy < 0 ? row_up : dy > 0 ? row_down : true)
+              && (dx < 0 ? col_left : dx > 0 ? col_right : true);
+          const int code = valid ? phase_byte(e, o) : 4;
+          const float v = lv[dy * kHaloW + dx];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (code == c) { s[c] += v; n[c] += 1; }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) rgbe[c] = average(s[c], n[c]);
+      }
+    }
+    float rgb[3];
+    finish::develop_rgb(rgbe, s_cal, a.calib, rgb);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      q[r] |= static_cast<typename P::T>(finish::quantize(static_cast<O*>(nullptr), rgb[r]))
+              << (P::kBits * i);
+    }
+    px = px + 1 == a.pw ? 0 : px + 1;
   }
 
+  // Store: one vector store per plane where the thread's four pixels are
+  // whole and aligned (width a multiple of 4), else one store per pixel.
   const long long plane_px = static_cast<long long>(a.height) * a.width;
-  finish::finish_pixel(rgbe, calib, static_cast<O*>(a.out) + 3 * b * plane_px,
-                       plane_px, static_cast<long long>(y) * a.width + x);
+  O* out = static_cast<O*>(a.out) + 3 * b * plane_px + static_cast<long long>(y) * a.width + xs;
+  const bool whole = (a.width & (kPix - 1)) == 0 && xs + kPix <= a.width;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    O* o = out + r * plane_px;
+    if (whole) {
+      *reinterpret_cast<typename P::T*>(o) = q[r];
+    } else {
+      for (int i = 0; i < kPix && xs + i < a.width; ++i) {
+        o[i] = static_cast<O>((q[r] >> (P::kBits * i)) & ((1u << P::kBits) - 1u));
+      }
+    }
+  }
 }
 
 template <typename T, typename O>
 cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y,
-                  batch);
-  develop_kernel<T, O><<<grid, block, 0, stream>>>(a);
+  const int smem = smem_bytes(a.ph * a.pw, a.calib.spline_stride);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        develop_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 block(kThreadsX, kThreadsY);
+  const dim3 grid((a.width + kTileW - 1) / kTileW, (a.height + kTileH - 1) / kTileH, batch);
+  develop_kernel<T, O><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -122,14 +284,16 @@ cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
 // C entry point for ctypes: develop `batch` planes [batch, H0, W0] (image b
 // at plane + b * plane_stride elements) with per-image calibration scal
 // [batch, 8, 16] and spline [batch, 5, spline_stride] into out
-// [batch, 3, height, width]. in_f32: 0 = u16 planes, 1 = f32 planes.
-// out_bits: 8 or 16. Returns the cudaError_t of the launch (0 = success).
+// [batch, 3, height, width]. phases: the [ph * pw] 16-byte per-phase tables
+// of the cropped CFA (kernels/develop.py::demosaic_phases). in_f32: 0 = u16
+// planes, 1 = f32 planes. out_bits: 8 or 16. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
                                     long long plane_stride, long long row_stride,
                                     int crop_x, int crop_y, int height, int width,
                                     const float* scal, const float* spline,
                                     int spline_stride, int n_knots,
-                                    const uint8_t* pattern, int ph, int pw, int mono,
+                                    const void* phases, int ph, int pw, int mono,
                                     int linear, int out_bits, void* out, void* stream) {
   DevelopArgs a;
   a.plane = plane;
@@ -144,13 +308,13 @@ extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
   a.calib.spline_stride = spline_stride;
   a.calib.n_knots = n_knots;
   a.calib.linear = linear;
-  a.pattern = pattern;
+  a.phases = static_cast<const uint4*>(phases);
   a.ph = ph;
   a.pw = pw;
   a.mono = mono;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (height <= 0 || width <= 0 || batch <= 0 || batch > 65535) {
+  if (height <= 0 || width <= 0 || batch <= 0 || batch > 65535 || ph <= 0 || pw <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (in_f32) {

@@ -22,7 +22,11 @@ blockIdx.z), in place of `_develop_pallas_batchgrid_jit` and the loop
 * `LAUNCHES` counts the launches of `develop` and `BATCH_LAUNCHES` those of
   `develop_batch`, so a run can show its main path went through the kernel.
 * Host tables reach the card from pinned memory without blocking the host
-  (`upload`), so a caller can stage the next batch while this one runs.
+  (`upload`), so a caller can stage the next batch while this one runs. The
+  kernel's demosaic reads a 16-byte table per CFA phase (`demosaic_phases`),
+  uploaded once per CFA and device.
+* `division_mismatches` runs csrc/division_check.cu, the card's proof that
+  the kernels' reciprocal-multiply division equals the IEEE one.
 
 Numerics: nvcc contracts a + b*c into FMA, as XLA does, and the plain
 version's separate tensor ops do not. So kernel and plain version are held
@@ -37,6 +41,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
@@ -44,11 +49,13 @@ import torch
 
 from ..raw import CFA
 from ..engine import _develop_one
+from .demosaic_full import OFFSETS_3X3
 
 __all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
-           "kernel_supported", "calib_tables", "batch_tables", "upload", "apply_flips",
-           "build", "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
-           "BATCH_LAUNCHES", "MAX_PATTERN", "MAX_LSB", "MAX_FLIP_FRACTION"]
+           "kernel_supported", "calib_tables", "batch_tables", "demosaic_phases",
+           "develop_smem_bytes", "division_mismatches", "upload", "apply_flips", "build",
+           "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
+           "BATCH_LAUNCHES", "MAX_PATTERN", "MAX_SMEM", "MAX_LSB", "MAX_FLIP_FRACTION"]
 
 # Kernel launches by `develop` and by `develop_batch` since import (or since
 # a caller reset them to 0).
@@ -62,6 +69,12 @@ MAX_FLIP_FRACTION = 0.02
 
 # Largest CFA period the kernel takes (the reference's 48x48 pattern tile).
 MAX_PATTERN = 48
+
+# The most dynamic shared memory a block can have on Hopper (227 KB).
+MAX_SMEM = 232448
+
+# csrc/develop.cu's tile: 128 x 8 output pixels, staged with a 1-pixel halo.
+_TILE_W, _TILE_H = 128, 8
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -139,8 +152,13 @@ def _library():
                                              p, i, i, i, i, i, p, p]
         lib.develop_scaled_batch_launch.restype = i
         lib.develop_scaled_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i,
-                                                    p, p, p, p, p, p, p, p, i, i,
-                                                    p, i, i, i, i, p, p]
+                                                    p, p, p, p, p, p, i, p, p, i, i,
+                                                    p, i, i, i, i, i, i, i, p, p]
+        lib.division_check_constants.restype = i
+        lib.division_check_constants.argtypes = [p, p, p]
+        lib.division_check_levels.restype = i
+        lib.division_check_levels.argtypes = [p, i, i, p, p, p]
+        lib.division_check_count.restype = i
         f = ctypes.c_float
         lib.rotate_resample_launch.restype = i
         lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, p, p]
@@ -201,26 +219,86 @@ def _pattern(plan) -> np.ndarray:
     return CFA(plan.cfa_name).pattern.astype(np.uint8)
 
 
+@lru_cache(maxsize=64)
+def _phases_cached(pattern_bytes: bytes, ph: int, pw: int) -> np.ndarray:
+    pattern = np.frombuffer(pattern_bytes, np.uint8).reshape(ph, pw)
+    py, px = np.divmod(np.arange(ph * pw), pw)
+    centre = pattern[py, px]
+    out = np.zeros((ph * pw, 16), np.uint8)
+    for i, (dy, dx) in enumerate(OFFSETS_3X3):
+        colour = pattern[(py + dy) % ph, (px + dx) % pw]
+        # A neighbour of the centre's own colour is not summed: the centre
+        # keeps its own sample (demosaic.rs:87).
+        out[:, i] = np.where((colour == centre) & ((dy, dx) != (0, 0)), 4, colour)
+    for c in range(4):
+        out[:, 9 + c] = (out[:, :9] == c).sum(axis=1)
+    if (ph, pw) == (2, 2):
+        # Offsets 1/7 (column), 3/5 (row), 0/2/6/8 (cross) share a colour.
+        col, row, cross = out[:, 1], out[:, 3], out[:, 0]
+        plus = (row == col) & (row < 4) & (cross < 4) & (cross != row)
+        pairs = (cross == 4) & (row < 4) & (col < 4) & (row != col)
+        out[:, 13] = np.where(plus | pairs, row, 0)
+        out[:, 14] = np.where(plus, cross, np.where(pairs, col, 0))
+        out[:, 15] = np.where(plus, 1, np.where(pairs, 2, 0))
+    return out
+
+
+def demosaic_phases(pattern: np.ndarray) -> np.ndarray:
+    """[ph * pw, 16] u8, the develop kernel's table per phase (py, px) of the
+    cropped CFA `pattern` [ph, pw]: bytes 0..8 the colour of each 3x3 offset
+    in the reference's order (OFFSETS_3X3), 4 where it is not summed (a
+    neighbour of the centre's own colour); bytes 9..12 the number of offsets
+    of each colour, which is the neighbour count wherever all nine offsets
+    lie inside the crop. On a 2x2 CFA bytes 13 and 14 give the colours of
+    the two neighbour groups and byte 15 their kind: 1 for the plus (offsets
+    1, 3, 5, 7) and the cross (0, 2, 6, 8), at R and B sites; 2 for the row
+    (3, 5) and the column (1, 7), at G sites; 0 (and bytes 13..15 zero)
+    where neither fits."""
+    pattern = np.ascontiguousarray(pattern, np.uint8)
+    return _phases_cached(pattern.tobytes(), *pattern.shape)
+
+
+def develop_smem_bytes(ph: int, pw: int, spline_stride: int) -> int:
+    """Dynamic shared memory of one develop-kernel block (csrc/develop.cu
+    `smem_bytes`): the levels tile with its halo, the calibration, the phase
+    table."""
+    return (4 * (_TILE_H + 2) * (_TILE_W + 2) + 4 * (128 + 5 * spline_stride)
+            + 16 * ph * pw)
+
+
+_CFA_TABLES: dict = {}
+
+
+def _cfa_tables(plan, device):
+    """(pattern, phases) of the plan's cropped CFA on `device`, uploaded once
+    per CFA and device."""
+    key = (plan.mode == "mono", plan.cfa_name, str(device))
+    hit = _CFA_TABLES.get(key)
+    if hit is None:
+        pattern = _pattern(plan)
+        hit = _CFA_TABLES[key] = (upload(pattern, device), upload(demosaic_phases(pattern), device))
+    return hit
+
+
 def _device_tables(plan, device):
-    """calib_tables and the cropped CFA pattern on `device`, memoized on the
-    plan: repeated develops of one plan upload them once."""
+    """(scal, spline, pattern, phases, n_knots): calib_tables on `device`,
+    memoized on the plan, and the CFA tables (`_cfa_tables`)."""
     hit = getattr(plan, "_cuda_tables", None)
-    if hit is not None and hit[0] == device:
-        return hit[1]
-    scal, spline, n_knots = calib_tables(plan)
-    tables = tuple(upload(a, device) for a in (scal, spline, _pattern(plan))) + (n_knots,)
-    plan._cuda_tables = (device, tables)
-    return tables
+    if hit is None or hit[0] != device:
+        scal, spline, n_knots = calib_tables(plan)
+        hit = plan._cuda_tables = (device, (upload(scal, device), upload(spline, device), n_knots))
+    scal, spline, n_knots = hit[1]
+    return (scal, spline, *_cfa_tables(plan, device), n_knots)
 
 
 def batch_tables(plans, device):
-    """(scal [B,8,16], spline [B,5,S], pattern, n_knots) on `device`: each
-    image's own calibration, stacked, and the CFA pattern the batch shares
-    (the plans share their statics)."""
+    """(scal [B,8,16], spline [B,5,S], pattern, phases, n_knots) on
+    `device`: each image's own calibration, stacked, and the CFA tables the
+    batch shares (the plans share their statics)."""
     tables = [calib_tables(p) for p in plans]
     scal = upload(np.stack([t[0] for t in tables]), device)
     spline = upload(np.stack([t[1] for t in tables]), device)
-    return scal, spline, upload(_pattern(plans[0]), device), tables[0][2]
+    return (scal, spline, *_cfa_tables(plans[0], device), tables[0][2])
 
 
 def apply_flips(out: torch.Tensor, orientation_flips) -> torch.Tensor:
@@ -291,8 +369,13 @@ def _out(plan, batch: int, height: int, width: int, device) -> torch.Tensor:
                        dtype=torch.uint8 if plan.out_bits == 8 else torch.uint16)
 
 
-def _launch(plan, planes: torch.Tensor, scal, spline, pattern, n_knots) -> torch.Tensor:
+def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots) -> torch.Tensor:
     """One launch over planes [B, H0, W0] -> unflipped [B, 3, H, W]."""
+    smem = develop_smem_bytes(*pattern.shape, spline.shape[-1])
+    if smem > MAX_SMEM:
+        raise ValueError(f"develop kernel: a block needs {smem} B of shared memory "
+                         f"(CFA {tuple(pattern.shape)}, spline stride {spline.shape[-1]}), "
+                         f"more than {MAX_SMEM}")
     out = _out(plan, planes.shape[0], plan.height, plan.width, planes.device)
     lib = _library()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -301,7 +384,7 @@ def _launch(plan, planes: torch.Tensor, scal, spline, pattern, n_knots) -> torch
             planes.data_ptr(), _element(planes), planes.shape[0], planes.stride(0),
             planes.stride(1), plan.crop_x, plan.crop_y, plan.height, plan.width,
             scal.data_ptr(), spline.data_ptr(), spline.shape[-1], n_knots,
-            pattern.data_ptr(), pattern.shape[0], pattern.shape[1],
+            phases.data_ptr(), pattern.shape[0], pattern.shape[1],
             int(plan.mode == "mono"), int(plan.linear), plan.out_bits,
             out.data_ptr(), stream)
     if rc != 0:
@@ -315,6 +398,43 @@ def _check_kernel(plan, device) -> None:
     if not kernel_supported(plan):
         raise ValueError(f"develop kernel: unsupported plan (mode {plan.mode!r}, "
                          f"dem_path {plan.dem_path!r}, cfa {plan.cfa_name!r})")
+
+
+def division_mismatches(pairs=(), f32_pairs=(), device="cuda") -> dict:
+    """Run csrc/division_check.cu on the card: the inputs for which
+    finish.cuh's div_rcp (a reciprocal multiply with one FMA correction)
+    does not give the IEEE quotient. {"constants": [count per constant
+    divisor of the back end, over all 2^32 float dividends], "levels":
+    [count per (black, range) of `pairs`, over all 65,536 u16 raws],
+    "levels_f32": [count per pair of `f32_pairs`, over all 2^32 float
+    raws], "checked": {the same keys: inputs tried, which shows the check
+    ran to its end}}. These launches are not counted in LAUNCHES."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"division_mismatches: unsupported device {device}")
+    lib = _library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counts, checked = {}, {}
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.int64, device=device)
+
+    with torch.cuda.device(device):
+        counts["constants"], checked["constants"] = zeros(lib.division_check_count()), zeros(1)
+        rc = lib.division_check_constants(counts["constants"].data_ptr(),
+                                          checked["constants"].data_ptr(), stream)
+        for key, f32, chosen in (("levels", 0, pairs), ("levels_f32", 1, f32_pairs)):
+            table = torch.tensor(np.asarray(chosen, np.float32).reshape(-1, 2), device=device)
+            counts[key], checked[key] = zeros(table.shape[0]), zeros(1)
+            if rc == 0 and table.shape[0]:
+                rc = lib.division_check_levels(table.data_ptr(), table.shape[0], f32,
+                                               counts[key].data_ptr(), checked[key].data_ptr(),
+                                               stream)
+    if rc != 0:
+        raise RuntimeError(f"division check launch failed: cudaError {rc}")
+    out = {k: v.cpu().tolist() for k, v in counts.items()}
+    out["checked"] = {k: int(v.item()) for k, v in checked.items()}
+    return out
 
 
 def develop_plain(plan, plane: torch.Tensor) -> torch.Tensor:

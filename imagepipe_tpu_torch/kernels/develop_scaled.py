@@ -25,17 +25,23 @@ is shared, the calibration each image's own. It replaces
   per (ky, row) and dx^2 per (kx, col), float32 as the reference rounds
   them. They replace the Pallas kernel's ~H*W*5 bytes of per-offset
   weight, colour and count tables.
+* Its launch plan (`scaled_plan`) splits each output pixel's window across
+  `window_split` lanes of one warp where windows are large, and fixes the
+  block's tile of output pixels; both follow from the geometry alone.
 * `LAUNCHES` counts the launches of `develop_scaled` and `BATCH_LAUNCHES`
   those of `develop_scaled_batch`. The library is built and bound by
   kernels/develop.py, with the full-size kernel.
 
-Numerics: the RGBE sums equal the plain version's term for term (same
-order, rounded products and adds); the back end's FMA contractions leave
-the cross-path contract of kernels/develop.py: max |diff| <= 1 LSB on
-fewer than 2% of values.
+Numerics: with one lane per pixel the RGBE sums equal the plain version's
+term for term (same order, rounded products and adds); split across lanes
+they are added in a fixed tree, so batched and single launches agree bit
+for bit. The back end's FMA contractions leave the cross-path contract of
+kernels/develop.py: max |diff| <= 1 LSB on fewer than 2% of values.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -47,7 +53,8 @@ from . import develop as kdev
 
 __all__ = ["develop_scaled", "develop_scaled_plain", "develop_scaled_batch",
            "develop_scaled_batch_plain", "scaled_supported", "scaled_geometry",
-           "LAUNCHES", "BATCH_LAUNCHES"]
+           "ScaledLaunchPlan", "window_split", "scaled_smem_bytes", "scaled_plan",
+           "LAUNCHES", "BATCH_LAUNCHES", "THREADS"]
 
 # Kernel launches by `develop_scaled` and by `develop_scaled_batch` since
 # import (or since a caller reset them to 0).
@@ -55,6 +62,9 @@ LAUNCHES = 0
 BATCH_LAUNCHES = 0
 
 _f32 = np.float32
+
+# Threads per block of csrc/develop_scaled.cu.
+THREADS = 256
 
 
 def scaled_supported(plan) -> bool:
@@ -68,6 +78,23 @@ def scaled_supported(plan) -> bool:
     return cfa.is_valid() and max(cfa.height, cfa.width) <= kdev.MAX_PATTERN
 
 
+def _host_geometry(plan) -> dict:
+    """scaled_geometry's tables as host arrays, memoized on the plan."""
+    hit = getattr(plan, "_scaled_host_geometry", None)
+    if hit is not None:
+        return hit
+    H, W = plan.height, plan.width
+    g = aligned_axes(W, H, (0, 0), (W - 1, 0), (0, H - 1), plan.dem_w, plan.dem_h)
+    x = np.minimum(g.from_x[None, :] + np.arange(g.k_x)[:, None], W - 1)
+    y = np.minimum(g.from_y[None, :] + np.arange(g.k_y)[:, None], H - 1)
+    dx = (x.astype(_f32) - g.cx[None, :]) / g.sxx
+    dy = (y.astype(_f32) - g.cy[None, :]) / g.syy
+    plan._scaled_host_geometry = dict(from_x=g.from_x, to_x=g.to_x, from_y=g.from_y,
+                                      to_y=g.to_y, dx2=(dx * dx).astype(_f32),
+                                      dy2=(dy * dy).astype(_f32))
+    return plan._scaled_host_geometry
+
+
 def scaled_geometry(plan, device="cpu") -> dict:
     """{from_x, to_x [nw], from_y, to_y [nh] int32; dx2 [K_x, nw], dy2
     [K_y, nh] float32}: the separable host tables of the plan's downscale,
@@ -78,17 +105,65 @@ def scaled_geometry(plan, device="cpu") -> dict:
     hit = getattr(plan, "_scaled_geometry", None)
     if hit is not None and hit[0] == device:
         return hit[1]
-    H, W = plan.height, plan.width
-    g = aligned_axes(W, H, (0, 0), (W - 1, 0), (0, H - 1), plan.dem_w, plan.dem_h)
-    x = np.minimum(g.from_x[None, :] + np.arange(g.k_x)[:, None], W - 1)
-    y = np.minimum(g.from_y[None, :] + np.arange(g.k_y)[:, None], H - 1)
-    dx = (x.astype(_f32) - g.cx[None, :]) / g.sxx
-    dy = (y.astype(_f32) - g.cy[None, :]) / g.syy
-    tables = dict(from_x=g.from_x, to_x=g.to_x, from_y=g.from_y, to_y=g.to_y,
-                  dx2=(dx * dx).astype(_f32), dy2=(dy * dy).astype(_f32))
-    tables = {k: kdev.upload(v, device) for k, v in tables.items()}
+    tables = {k: kdev.upload(v, device) for k, v in _host_geometry(plan).items()}
     plan._scaled_geometry = (device, tables)
     return tables
+
+
+@dataclass(frozen=True)
+class ScaledLaunchPlan:
+    """How csrc/develop_scaled.cu covers a geometry: sx lanes of one warp per
+    output pixel, a block of THREADS threads develops tc x tr output pixels,
+    kx window columns, smem bytes of shared memory per block."""
+    sx: int
+    tc: int
+    tr: int
+    kx: int
+    smem: int
+
+
+def window_split(k_x: int) -> int:
+    """Lanes of one warp that share an output pixel's window of at most k_x
+    columns, each taking every sx-th column of each window row: the largest
+    power of two up to 32 that leaves each lane at least 4 columns. One lane
+    below 8 columns (-> 1024 and -> 2048 at 24 MP: the sums keep the plain
+    version's order); 8 at 24 MP -> 160 (39 columns), where 16 and 32 lanes
+    ran slower on the card (PERF.md)."""
+    sx = 1
+    while sx < 32 and 2 * sx * 4 <= k_x:
+        sx *= 2
+    return sx
+
+
+def scaled_smem_bytes(tc: int, tr: int, kx: int, ph: int, pw: int, spline_stride: int) -> int:
+    """Dynamic shared memory of one scaled-kernel block (csrc/develop_scaled.cu
+    `layout`): calibration, per-pixel RGBE, 1 - dx^2 of the tile's columns,
+    the CFA pattern."""
+    a16 = lambda n: (n + 15) & ~15
+    return (4 * (128 + 5 * spline_stride) + 16 * tc * tr + a16(4 * (kx | 1) * tc)
+            + a16(ph * pw))
+
+
+def scaled_plan(plan, spline_stride: int) -> ScaledLaunchPlan:
+    """The launch plan of the plan's geometry (memoized on the plan): the
+    window split, then a tile of THREADS / sx output pixels, up to 32
+    columns wide. Raises if a block needs more than MAX_SMEM of shared
+    memory (windows some 1,700 columns wide)."""
+    hit = getattr(plan, "_scaled_launch_plan", None)
+    if hit is not None and hit[0] == spline_stride:
+        return hit[1]
+    kx = _host_geometry(plan)["dx2"].shape[0]
+    sx = window_split(kx)
+    ph, pw = kdev._pattern(plan).shape
+    outs = THREADS // sx
+    tc = min(32, outs)
+    smem = scaled_smem_bytes(tc, outs // tc, kx, ph, pw, spline_stride)
+    if smem > kdev.MAX_SMEM:
+        raise ValueError(f"develop_scaled kernel: windows of {kx} columns need {smem} B of "
+                         f"shared memory per block, more than {kdev.MAX_SMEM}")
+    launch = ScaledLaunchPlan(sx, tc, outs // tc, kx, smem)
+    plan._scaled_launch_plan = (spline_stride, launch)
+    return launch
 
 
 def develop_scaled_plain(plan, plane: torch.Tensor) -> torch.Tensor:
@@ -111,9 +186,10 @@ def _check_kernel(plan, device) -> None:
                          f"cfa {plan.cfa_name!r})")
 
 
-def _launch(plan, planes: torch.Tensor, scal, spline, pattern, n_knots) -> torch.Tensor:
+def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots) -> torch.Tensor:
     """One launch over planes [B, H0, W0] -> unflipped [B, 3, dem_h, dem_w]."""
     g = scaled_geometry(plan, planes.device)
+    lp = scaled_plan(plan, spline.shape[-1])
     out = kdev._out(plan, planes.shape[0], plan.dem_h, plan.dem_w, planes.device)
     lib = kdev._library()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -123,9 +199,10 @@ def _launch(plan, planes: torch.Tensor, scal, spline, pattern, n_knots) -> torch
             planes.stride(1), plan.crop_x, plan.crop_y, plan.dem_h, plan.dem_w,
             g["from_x"].data_ptr(), g["to_x"].data_ptr(),
             g["from_y"].data_ptr(), g["to_y"].data_ptr(),
-            g["dx2"].data_ptr(), g["dy2"].data_ptr(),
+            g["dx2"].data_ptr(), g["dy2"].data_ptr(), lp.kx,
             scal.data_ptr(), spline.data_ptr(), spline.shape[-1], n_knots,
             pattern.data_ptr(), pattern.shape[0], pattern.shape[1],
+            lp.sx, lp.tc, lp.tr,
             int(plan.linear), plan.out_bits, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"develop_scaled kernel launch failed: cudaError {rc}")

@@ -1,0 +1,354 @@
+#!/usr/bin/env python3
+"""Time the port's two develop kernels like for like, and show what they cost
+in registers and instructions.
+
+Run from the repository root on a machine with an NVIDIA GPU:
+
+    python3 scripts/time_develop_kernels.py [--label NAME]
+
+It times whichever `imagepipe_tpu_torch` is first on the import path, so two
+versions of the kernels can be compared in one run on one card: unpack the
+other version's `imagepipe_tpu_torch/` into a directory that .gitignore
+lists and run this script with `PYTHONPATH=<that directory>`, in turns with
+the tree's own (`PYTHONPATH=.`). The script uses only the kernels' public
+wrappers (`develop`, `develop_batch`, `develop_scaled`,
+`develop_scaled_batch`) and `kernels.develop.build`, which every version of
+the port has.
+
+What it measures, on the card it names (`nvidia-smi` name and power limit):
+
+* device ms per launch: `LAUNCHES` calls back to back after a warm-up,
+  enqueued behind a device sleep so the card runs them without gaps, the
+  calls rotating over three distinct inputs so that each 24 MP plane
+  (48 MB, about the L2 cache's 50 MB) is read cold, as a request reads it;
+  median of `REPEATS` such runs. If the host took longer to enqueue the
+  launches than the sleep lasted, the figure is flagged `host_bound`;
+* from idle: one call timed with CUDA events from an idle device, so the
+  wrapper's host path before its launch counts too (median of `REPEATS`);
+  the difference from the device ms is the wrapper's host overhead;
+* the bound: the larger of the bytes the function must move (the cropped
+  plane read once, the output written once) over 3.35 TB/s and its least
+  float32 work (`OPS_*`, levels counted once per source sample) over
+  67 TFLOP/s;
+* registers, spills and shared memory per kernel (`nvcc -Xptxas -v` on the
+  package's csrc/), and static SASS instructions per kernel
+  (`cuobjdump -sass` of the built library).
+
+Prints one JSON object as its last line (and writes it to `--json PATH`
+when given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+try:
+    import imagepipe_tpu_torch as ipt
+except ImportError:        # run from a checkout without PYTHONPATH: its own package
+    sys.path.append(str(Path(__file__).resolve().parent.parent))
+    import imagepipe_tpu_torch as ipt
+from imagepipe_tpu_torch import raw as traw
+from imagepipe_tpu_torch.engine import make_develop_plan
+from imagepipe_tpu_torch.kernels import develop as kdev
+from imagepipe_tpu_torch.kernels import develop_scaled as kds
+from imagepipe_tpu_torch.sources import ImageSource
+
+BAYER = (6000, 4000)
+XTRANS = (6240, 4168)
+BATCH = 8
+LAUNCHES = 24            # launches per timed run (>= 20)
+REPEATS = 5              # timed runs per figure
+INPUTS = 3               # distinct inputs the launches rotate over
+SLEEP_CYCLES = 200_000_000   # ~0.1 s of device sleep ahead of a timed run
+
+# The card's peaks (NVIDIA's H100 SXM data sheet, at its 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# The develop function's least float32 work (an FMA counts 2; expf, logf, a
+# division, a min or a compare 1 each; index arithmetic not counted).
+# Levels, once per source sample: subtract, divide, clip.
+OPS_LEVELS = 3
+# The back end per output pixel, 8-bit with gamma and no tone curve: WB 8,
+# camera matrix 21, XYZ scaling 3, three lab_f 24, L/A/B 11, Lab^-1 30,
+# XYZ->RGB 15, gamma 30, quantize 12.
+OPS_FINISH = 154
+# The 3x3 demosaic per Bayer pixel, averaged over a quad: at R and B the
+# two other colours sum four neighbours each (3 adds and a division), at G
+# two each (1 add and a division): (8 + 4 + 4 + 8) / 4.
+OPS_DEMOSAIC_BAYER = 6
+# The scaled demosaic per window sample: weight (subtract dy^2, clip at 0),
+# product, colour sum and weight sum (1 - dx^2 is per window column, not per
+# sample); per output pixel the four averages.
+OPS_WINDOW_SAMPLE = 5
+OPS_SCALED_PIXEL = 4
+
+
+# Opcodes counted in each kernel's SASS: special-function unit calls
+# (MUFU.RCP of a division, MUFU.LG2/EX2 of logf/expf), the division's
+# range check, branches, and global and shared memory accesses.
+SASS_OPCODES = ("MUFU", "FCHK", "BRA", "LDG", "STG", "LDS", "STS", "BAR")
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def roofline(read_bytes, write_bytes, ops) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the float32 operations over the float32 rate."""
+    by_bytes = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def develop_bound(plan, plane) -> tuple[float, str]:
+    """The full-size develop's bound for one Bayer plane."""
+    px = plan.height * plan.width
+    return roofline(px * plane.element_size(), 3 * px * plan.out_bits // 8,
+                  px * (OPS_LEVELS + OPS_DEMOSAIC_BAYER + OPS_FINISH))
+
+
+def scaled_bound(plan, plane) -> tuple[float, str]:
+    """The thumbnail develop's bound for one plane: the window samples this
+    geometry has (from its tables), levels once per source sample."""
+    g = {k: v.cpu().numpy().astype(np.int64) for k, v in kds.scaled_geometry(plan).items()
+         if k in ("from_x", "to_x", "from_y", "to_y")}
+    samples = int((g["to_x"] - g["from_x"] + 1).sum()) * int((g["to_y"] - g["from_y"] + 1).sum())
+    src_px = plan.height * plan.width
+    out_px = plan.dem_h * plan.dem_w
+    return roofline(src_px * plane.element_size(), 3 * out_px * plan.out_bits // 8,
+                  src_px * OPS_LEVELS + samples * OPS_WINDOW_SAMPLE
+                  + out_px * (OPS_SCALED_PIXEL + OPS_FINISH))
+
+
+def device_ms(fns, device, launches=LAUNCHES, repeats=REPEATS) -> dict:
+    """Device ms per launch of `launches` calls of `fns` in rotation, back to
+    back, behind a device sleep (median of `repeats`); `host_bound` if the
+    host enqueued them more slowly than the sleep lasted."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize(device)
+    runs, host_bound = [], False
+    for _ in range(repeats):
+        t0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t = time.perf_counter()
+        for i in range(launches):
+            fns[i % len(fns)]()
+        enqueue_ms = (time.perf_counter() - t) * 1e3
+        end.record()
+        torch.cuda.synchronize(device)
+        host_bound |= enqueue_ms >= t0.elapsed_time(start)
+        runs.append(start.elapsed_time(end) / launches)
+    return {"ms": statistics.median(runs), "runs": [round(r, 5) for r in runs],
+            "host_bound": host_bound}
+
+
+def from_idle_ms(fn, device, repeats=REPEATS) -> float:
+    """Median ms of one call timed with CUDA events from an idle device."""
+    fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        runs.append(start.elapsed_time(end))
+    return statistics.median(runs)
+
+
+def plan_for(raw, bits, device, maxwidth=0):
+    pipe = ipt.Pipeline.new_from_source(ImageSource.from_raw(raw), device)
+    pipe.globals.settings.linear = bits == 16
+    pipe.globals.settings.maxwidth = maxwidth
+    return make_develop_plan(pipe, out_bits=bits, numerics="direct")
+
+
+def variants(base, n):
+    """n RawImages sharing `base`'s sensor data, each with its own WB."""
+    import copy
+
+    out = []
+    for i in range(n):
+        r = copy.copy(base)
+        r.wb_coeffs = (1.5 + 0.1 * i, 1.0, 1.2 + 0.12 * i, float("nan"))
+        out.append(r)
+    return out
+
+
+def _upload(raw, device):
+    return torch.from_numpy(np.ascontiguousarray(raw.data)).to(device)
+
+
+def _entry(fns, idle_fn, bound, device, batch=1) -> dict:
+    t = device_ms(fns, device)
+    t["from_idle_ms"] = from_idle_ms(idle_fn, device)
+    t["bound_ms"] = bound[0] * batch
+    t["bound_by"] = bound[1]
+    return t
+
+
+def kernel_times(device) -> dict:
+    """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by}} for
+    the develop and scaled kernels at the main path's shapes."""
+    out = {}
+    bayer = [traw.synthetic_bayer(*BAYER, seed=20 + i) for i in range(INPUTS)]
+    xtrans = [traw.synthetic_xtrans(*XTRANS, seed=20 + i) for i in range(INPUTS)]
+    for label, raws, bits in (("develop 24 MP Bayer 8-bit", bayer, 8),
+                              ("develop 24 MP Bayer 16-bit linear", bayer, 16),
+                              ("develop 26 MP X-Trans 8-bit", xtrans, 8)):
+        plan = plan_for(raws[0], bits, device)
+        planes = [_upload(r, device) for r in raws]
+        fns = [lambda p=p: kdev.develop(plan, p) for p in planes]
+        out[label] = _entry(fns, fns[0], develop_bound(plan, planes[0]), device)
+        del planes
+    planes = [_upload(r, device) for r in bayer]
+    for width, bits in ((2048, 8), (1024, 8), (160, 8), (1024, 16)):
+        plan = plan_for(bayer[0], bits, device, maxwidth=width)
+        fns = [lambda p=p: kds.develop_scaled(plan, p) for p in planes]
+        label = (f"develop_scaled 24 MP Bayer -> {plan.dem_w}x{plan.dem_h}"
+                 + (" 16-bit linear" if bits == 16 else ""))
+        out[label] = _entry(fns, fns[0], scaled_bound(plan, planes[0]), device)
+    del planes
+
+    # Batched: B=8 planes of 24 MP Bayer with per-image WB, plans on the
+    # host as the batch engine makes them; INPUTS distinct batches.
+    cpu = torch.device("cpu")
+    batches = [torch.stack([_upload(r, device) for r in variants(bayer[i], BATCH)])
+               for i in range(INPUTS)]
+    raws = variants(bayer[0], BATCH)
+    for maxwidth, fn, bound_of, label in (
+            (0, kdev.develop_batch, develop_bound, f"develop_batch B={BATCH} 24 MP Bayer 8-bit"),
+            (1024, kds.develop_scaled_batch, scaled_bound,
+             f"develop_scaled_batch B={BATCH} 24 MP Bayer -> 1024")):
+        plans = [plan_for(r, 8, cpu, maxwidth=maxwidth) for r in raws]
+        fns = [lambda b=b: fn(plans, b) for b in batches]
+        out[label] = _entry(fns, fns[0], bound_of(plans[0], batches[0][0]), device, BATCH)
+    del batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for c in ([os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []) + [shutil.which("nvcc")]:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found")
+
+
+def ptxas_report(csrc: Path, build_dir: Path) -> dict:
+    """{kernel: 'N registers, ... bytes spill ..., M bytes smem'} from
+    `nvcc -Xptxas -v` on each develop source, compiled with the package's
+    own flags (one nvcc each, in parallel)."""
+    flags = [f for f in kdev._NVCC_FLAGS]
+    build_dir.mkdir(exist_ok=True)
+    procs = []
+    for name in ("develop.cu", "develop_scaled.cu"):
+        obj = build_dir / f"ptxas_{name}.{os.getpid()}.o"
+        procs.append((obj, subprocess.Popen([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+                                             str(csrc / name)],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True)))
+    report, kernel = {}, None
+    for obj, proc in procs:
+        text, _ = proc.communicate()
+        obj.unlink(missing_ok=True)
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = _demangle(m.group(1))
+            elif kernel and ("registers" in line or "spill" in line):
+                report.setdefault(kernel, []).append(line.split("ptxas info    :")[-1].strip())
+    return report
+
+
+def _demangle(name: str) -> str:
+    cxxfilt = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not cxxfilt:
+        return name
+    return subprocess.run([cxxfilt, name], capture_output=True, text=True).stdout.strip() or name
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel: {"instructions": static SASS instruction count, and the
+    count of each opcode in SASS_OPCODES}} of the develop kernels in the
+    built library (`cuobjdump -sass`); NOPs are not counted."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, kernel = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            kernel = _demangle(m.group(1))
+            counts[kernel] = dict.fromkeys(("instructions",) + SASS_OPCODES, 0)
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if kernel and m and m.group(2) != "NOP":
+            c = counts[kernel]
+            c["instructions"] += 1
+            op = m.group(2)
+            for name in SASS_OPCODES:
+                if op == name or op.startswith(name + "."):
+                    c[name] += 1
+    return {k: v for k, v in counts.items() if "develop_kernel" in k or "scaled_kernel" in k}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--json", help="also write the result line to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_develop_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    the_card = card()
+    print(the_card)
+    pkg = Path(kdev.__file__).resolve().parent.parent
+    t = time.perf_counter()
+    lib = kdev.build()
+    print(f"{args.label}: {pkg}, built {lib.name} in {time.perf_counter() - t:.1f} s")
+    result = {"label": args.label, "card": the_card, "package": str(pkg),
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "ptxas": ptxas_report(pkg / "csrc", pkg / "build"),
+              "sass_instructions": sass_counts(lib)}
+    for k, v in result["ptxas"].items():
+        print(f"  ptxas {k}: {'; '.join(v)}")
+    for k, v in result["sass_instructions"].items():
+        print(f"  sass {k}: {v}")
+    result["times"] = kernel_times(device)
+    for k, v in result["times"].items():
+        print(f"  {k}: {v['ms']:.4f} ms device (runs {v['runs']}{', HOST-BOUND' if v['host_bound'] else ''}), "
+              f"{v['from_idle_ms']:.4f} ms from idle; bound {v['bound_ms']:.4f} ms by {v['bound_by']} "
+              f"(on {the_card})")
+    line = json.dumps(result)
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -77,6 +77,14 @@ def _float_plane():
     return raw
 
 
+def _past_tile(make):
+    """A frame cropped at the odd origin (11, 3) to 129 x 17: one pixel past
+    the develop kernel's 128 x 8 tile in x and in y."""
+    raw = make(129 + 16, 17 + 10)
+    raw.crops = (3, 5, 7, 11)
+    return raw
+
+
 CASES = {
     "bayer16": (lambda: synthetic_bayer(168, 112), 16),
     "xtrans8": (lambda: synthetic_xtrans(174, 114), 8),
@@ -87,6 +95,8 @@ CASES = {
     "crops": (_cropped, 8),
     "float_plane": (_float_plane, 8),
     "odd_size": (lambda: synthetic_xtrans(37, 29), 8),   # partial blocks, ragged edge
+    "past_tile": (lambda: _past_tile(synthetic_bayer), 8),
+    "past_tile_xtrans16": (lambda: _past_tile(synthetic_xtrans), 16),
 }
 
 
@@ -134,6 +144,130 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     tplan = plan_from_jax(_jax_plan(raw), "cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         kdev.develop(tplan, torch.empty((48, 64), device="meta"))
+
+
+def _kernel_demosaic(levels, pattern, interior):
+    """csrc/develop.cu's demosaic in numpy float32, from its per-phase
+    tables: the sums in offset order, then each average by the table's
+    count (`interior`, for pixels whose nine offsets lie inside the crop) or
+    by the valid neighbours counted (the border tiles' path); a power-of-two
+    count multiplies by its reciprocal."""
+    h, w = levels.shape
+    ph, pw = pattern.shape
+    phases = kdev.demosaic_phases(pattern)
+    rows, cols = np.arange(h)[:, None], np.arange(w)[None, :]
+    e = phases[(rows % ph) * pw + cols % pw]                       # [h, w, 16]
+    padded = np.pad(levels, 1)
+    s = np.zeros((4, h, w), np.float32)
+    n = np.zeros((4, h, w), np.int64)
+    for o, (dy, dx) in enumerate(kdev.OFFSETS_3X3):
+        v = padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        valid = ((rows + dy >= 0) & (rows + dy < h)) & ((cols + dx >= 0) & (cols + dx < w))
+        code = e[..., o] if interior else np.where(valid, e[..., o], 4)
+        for c in range(4):
+            s[c] = np.where(code == c, s[c] + v, s[c])
+            n[c] += code == c
+    if interior:
+        n = np.moveaxis(e[..., 9:13], -1, 0).astype(np.int64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        pow2 = (n & (n - 1)) == 0
+        recip = np.ldexp(np.float32(1.0), -np.log2(np.maximum(n, 1)).astype(np.int32))
+        avg = np.where(pow2, s * recip.astype(np.float32), s / n.astype(np.float32))
+    out = np.where(n == 0, np.float32(0.0), avg).astype(np.float32)
+    if interior:
+        # The 2x2 path: the plus and cross sums, or the row and column pairs.
+        v = {o: padded[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+             for o, (dy, dx) in enumerate(kdev.OFFSETS_3X3)}
+        quad = e[..., 15]
+        va = np.where(quad == 1, (((v[1] + v[3]) + v[5]) + v[7]) * np.float32(0.25),
+                      (v[3] + v[5]) * np.float32(0.5))
+        vb = np.where(quad == 1, (((v[0] + v[2]) + v[6]) + v[8]) * np.float32(0.25),
+                      (v[1] + v[7]) * np.float32(0.5))
+        for c in range(4):
+            fast = np.where(e[..., 4] == c, v[4], np.where(e[..., 13] == c, va,
+                            np.where(e[..., 14] == c, vb, np.float32(0.0))))
+            out[c] = np.where(quad != 0, fast, out[c])
+    return out
+
+
+@pytest.mark.parametrize("case", ["bayer", "xtrans", "bayer_crop", "xtrans_crop", "xtrans_37x29",
+                                  "2x4"])
+def test_demosaic_phase_tables_match_stencil(case):
+    """The develop kernel's per-phase colour and count tables give the plain
+    stencil's RGBE bit for bit: through the border path at every pixel, and
+    through the interior path wherever all nine offsets lie inside."""
+    from imagepipe_tpu_torch.kernels.demosaic_full import stencil_demosaic_planes
+    from imagepipe_tpu_torch.raw import CFA as PortCFA
+
+    make = {"bayer": lambda: synthetic_bayer(64, 48), "xtrans": lambda: synthetic_xtrans(66, 48),
+            "bayer_crop": lambda: _past_tile(synthetic_bayer),
+            "xtrans_crop": lambda: _past_tile(synthetic_xtrans),
+            "xtrans_37x29": lambda: synthetic_xtrans(37, 29),
+            "2x4": lambda: synthetic_bayer(64, 48)}[case]
+    raw = make()
+    cfa_name = raw.cropped_cfa().name if case != "2x4" else "2x4:RGBGBGRG"
+    pattern = PortCFA(cfa_name).pattern.astype(np.uint8)
+    t, r, b, l = raw.crops
+    h, w = raw.height - t - b, raw.width - l - r
+    levels = np.random.default_rng(3).uniform(-0.1, 1.0, (h, w)).astype(np.float32)
+    want = np.stack([p.numpy() for p in
+                     stencil_demosaic_planes(torch.from_numpy(levels), cfa_name, h, w)])
+    np.testing.assert_array_equal(_kernel_demosaic(levels, pattern, interior=False), want)
+    inner = _kernel_demosaic(levels, pattern, interior=True)
+    np.testing.assert_array_equal(inner[:, 1:-1, 1:-1], want[:, 1:-1, 1:-1])
+
+
+@pytest.mark.parametrize("name", ["RGGB", "BGGR", "GRBG", "GBRG", "xtrans", "2x4:RGBGBGRG"])
+def test_demosaic_phases_table(name):
+    """Per phase: the centre keeps its own colour, same-colour neighbours are
+    not summed, and the counts add up to the summed offsets."""
+    from imagepipe_tpu_torch.raw import CFA as PortCFA
+
+    if name == "xtrans":
+        name = synthetic_xtrans(12, 12).cfa.name
+    pattern = PortCFA(name).pattern.astype(np.uint8)
+    ph, pw = pattern.shape
+    t = kdev.demosaic_phases(pattern)
+    assert t.shape == (ph * pw, 16) and t.dtype == np.uint8
+    for py in range(ph):
+        for px in range(pw):
+            e = t[py * pw + px]
+            assert e[4] == pattern[py, px]
+            assert not any(e[o] == e[4] for o in range(9) if o != 4)
+            assert int(e[9:13].sum()) == int((e[:9] < 4).sum())
+            assert e[9 + e[4]] == 1
+            # Bayer's four phases take the 2x2 path; other CFAs never do.
+            assert (e[15] != 0) == (name in ("RGGB", "BGGR", "GRBG", "GBRG"))
+            if e[15] == 1:
+                assert e[9 + e[13]] == 4 and e[9 + e[14]] == 4
+            if e[15] == 2:
+                assert e[9 + e[13]] == 2 and e[9 + e[14]] == 2
+
+
+@pytest.mark.parametrize("spline_stride", [16, 24, 160])
+def test_develop_launch_fits_every_cfa(spline_stride):
+    """A develop-kernel block fits in shared memory for every CFA period up
+    to 48 x 48, and the wrapper raises (never falls back) past 227 KB."""
+    sizes = [kdev.develop_smem_bytes(ph, pw, spline_stride)
+             for ph in range(1, kdev.MAX_PATTERN + 1) for pw in range(1, kdev.MAX_PATTERN + 1)]
+    assert max(sizes) == kdev.develop_smem_bytes(48, 48, spline_stride) <= kdev.MAX_SMEM
+    assert kdev.develop_smem_bytes(48, 48, 10_000) > kdev.MAX_SMEM
+
+
+@pytest.mark.cuda
+def test_div_rcp_equals_ieee_division_on_card():
+    """finish.cuh's div_rcp gives __fdiv_rn's quotient for every float
+    dividend of each constant divisor and every u16 raw of the levels of the
+    test calibrations (and every float raw of one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the check is a CUDA kernel")
+    pairs = [tuple(float(v) for v in kdev.calib_tables(plan_from_jax(_jax_plan(make()), "cpu"))[0][0, :2])
+             for make, _ in CASES.values()] + [(0.0, 1.0), (512.0, 15871.0), (2047.5, 0.37)]
+    res = kdev.division_mismatches(pairs, pairs[:1])
+    assert len(res["constants"]) == 8 and len(res["levels"]) == len(pairs)
+    assert res["checked"] == {"constants": 1 << 32, "levels": len(pairs) << 16,
+                              "levels_f32": 1 << 32}
+    assert not any(res["constants"]) and not any(res["levels"]) and not any(res["levels_f32"]), res
 
 
 @pytest.mark.cuda
@@ -197,7 +331,8 @@ def _wb(i):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["bayer8", "bayer16", "xtrans8", "rotate90", "float_plane"])
+@pytest.mark.parametrize("case", ["bayer8", "bayer16", "xtrans8", "rotate90", "float_plane",
+                                  "past_tile", "past_tile_xtrans16"])
 def test_batch_kernel_matches_single_launches_on_card(case):
     """One batched launch equals B single launches bit for bit, each image
     with its own calibration, and holds the plain version's contract."""

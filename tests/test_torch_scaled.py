@@ -193,6 +193,151 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         kds.develop_scaled(tplan, torch.empty((320, 480), device="meta"))
 
 
+@pytest.mark.parametrize("k_x,want", [(4, 1), (7, 1), (8, 2), (11, 2), (20, 4), (39, 8),
+                                      (151, 32), (401, 32), (1, 1)])
+def test_window_split(k_x, want):
+    """One lane below 8 window columns (-> 1024 and -> 2048 at 24 MP keep
+    the plain version's order), then the most lanes, up to 32, that leave
+    each at least 4 columns."""
+    sx = kds.window_split(k_x)
+    assert sx == want and sx & (sx - 1) == 0
+
+
+def _geometry_plan(width, height, maxwidth, cfa_name="RGGB"):
+    """The few plan fields the scaled kernel's host planning reads, for a
+    width x height crop thumbnailed to `maxwidth` (no sensor data)."""
+    from types import SimpleNamespace
+
+    nh = max(1, round(height * maxwidth / width))
+    return SimpleNamespace(mode="cfa", cfa_name=cfa_name, height=height, width=width,
+                           dem_w=maxwidth, dem_h=nh)
+
+
+GEOMETRIES = {   # (width, height, maxwidth, cfa): the main path's and the tests' deepest
+    "24mp-2048": (6000, 4000, 2048, "RGGB"), "24mp-1024": (6000, 4000, 1024, "RGGB"),
+    "24mp-320": (6000, 4000, 320, "RGGB"), "24mp-160": (6000, 4000, 160, "RGGB"),
+    "24mp-16": (6000, 4000, 16, "RGGB"), "xtrans-1024": (6240, 4168, 1024, "xtrans"),
+    "61mp-1024": (9504, 6336, 1024, "RGGB"), "600-16": (600, 400, 16, "RGGB"),
+    "590-20": (590, 400, 20, "xtrans"), "600-33": (600, 400, 33, "RGGB"),
+}
+
+
+def _xtrans_name():
+    return synthetic_xtrans(12, 12).cfa.name
+
+
+@pytest.mark.parametrize("case", list(GEOMETRIES))
+def test_scaled_plan_fits(case):
+    """The launch plan fits in shared memory at every geometry, the deepest
+    the tests reach included, fills a 256-thread block, and splits windows
+    as window_split says."""
+    w, h, maxwidth, cfa = GEOMETRIES[case]
+    plan = _geometry_plan(w, h, maxwidth, _xtrans_name() if cfa == "xtrans" else cfa)
+    lp = kds.scaled_plan(plan, 160)
+    assert lp.smem <= kdev.MAX_SMEM
+    assert lp.tc * lp.tr * lp.sx == kds.THREADS
+    g = kds._host_geometry(plan)
+    assert lp.kx == g["dx2"].shape[0] == int((g["to_x"] - g["from_x"]).max()) + 1
+    assert lp.sx == kds.window_split(lp.kx)
+    assert lp.smem == kds.scaled_smem_bytes(lp.tc, lp.tr, lp.kx, *kdev._pattern(plan).shape, 160)
+
+
+def test_scaled_plan_raises_past_shared_memory():
+    """A window too wide for one block's shared memory raises: no fallback."""
+    plan = _geometry_plan(40000, 400, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        kds.scaled_plan(plan, 16)
+
+
+def _lane_visits(ny, nx, sx):
+    """(ky, kx) pairs the lanes visit, walking csrc/develop_scaled.cu's loops:
+    every row, columns kx = lane (mod sx)."""
+    return [(ky, kx) for lane in range(sx) for ky in range(ny) for kx in range(lane, nx, sx)]
+
+
+@pytest.mark.parametrize("case", ["600-16", "590-20", "600-33", "24mp-160"])
+def test_scaled_lanes_visit_each_window_sample_once(case):
+    """Across its lanes, each output pixel's window is walked exactly once."""
+    w, h, maxwidth, cfa = GEOMETRIES[case]
+    plan = _geometry_plan(w, h, maxwidth, _xtrans_name() if cfa == "xtrans" else cfa)
+    lp = kds.scaled_plan(plan, 16)
+    g = kds._host_geometry(plan)
+    assert lp.sx > 1
+    for row in range(0, plan.dem_h, max(1, plan.dem_h // 7)):
+        for col in range(0, plan.dem_w, max(1, plan.dem_w // 7)):
+            ny = int(g["to_y"][row] - g["from_y"][row] + 1)
+            nx = int(g["to_x"][col] - g["from_x"][col] + 1)
+            visits = _lane_visits(ny, nx, lp.sx)
+            assert sorted(visits) == [(ky, kx) for ky in range(ny) for kx in range(nx)]
+
+
+def _kernel_rgbe(levels, g, pattern, lanes):
+    """csrc/develop_scaled.cu's RGBE in numpy float32: each lane sums its
+    columns of the window in ky-outer, kx-inner order, then the lanes' sums
+    are added as the shuffle tree adds them."""
+    nh, nw = len(g["from_y"]), len(g["from_x"])
+    h, w = levels.shape
+    ph, pw = pattern.shape
+    sums = np.zeros((lanes, 4, nh, nw), np.float32)
+    counts = np.zeros((lanes, 4, nh, nw), np.float32)
+    for ky in range(g["dy2"].shape[0]):
+        y = g["from_y"] + ky
+        yc = np.minimum(y, h - 1)
+        for kx in range(g["dx2"].shape[0]):
+            x = g["from_x"] + kx
+            xc = np.minimum(x, w - 1)
+            valid = (y <= g["to_y"])[:, None] & (x <= g["to_x"])[None, :]
+            wgt = (np.float32(1.0) - g["dx2"][kx])[None, :] - g["dy2"][ky][:, None]
+            wgt = np.where(wgt < 0, np.float32(0.0), wgt).astype(np.float32)
+            vw = (levels[np.ix_(yc, xc)] * wgt).astype(np.float32)
+            colour = pattern[np.ix_(yc % ph, xc % pw)]
+            lane = kx % lanes
+            for c in range(4):
+                sel = valid & (colour == c)
+                sums[lane, c] = np.where(sel, sums[lane, c] + vw, sums[lane, c])
+                counts[lane, c] = np.where(sel, counts[lane, c] + wgt, counts[lane, c])
+    off = lanes // 2
+    while off:
+        sums[:off] = sums[:off] + sums[off:2 * off]
+        counts[:off] = counts[:off] + counts[off:2 * off]
+        off //= 2
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(counts[0] > 0, sums[0] / counts[0], np.float32(0.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("maxwidth,kind", [(96, "bayer"), (40, "bayer"), (16, "bayer"),
+                                           (20, "xtrans")])
+def test_scaled_kernel_order_matches_plain(maxwidth, kind):
+    """The scaled kernel's summation order, emulated: with one lane per pixel
+    its RGBE equals the plain version's bit for bit; split across lanes it
+    develops within the cross-path contract of the plain version."""
+    from imagepipe_tpu_torch.raw import CFA as PortCFA
+    from imagepipe_tpu_torch.scaling import scale_down_planar
+
+    raw = KINDS[kind](590, 400, seed=11)
+    tplan = tengine.plan_from_jax(_jax_plan(raw, maxwidth), "cpu")
+    assert tplan.dem_path == "scaled"
+    g = kds._host_geometry(tplan)
+    lanes = kds.window_split(g["dx2"].shape[0])
+    levels = np.random.default_rng(12).uniform(-0.05, 1.0, (tplan.height, tplan.width))
+    levels = levels.astype(np.float32)
+    cfa = PortCFA(tplan.cfa_name)
+    got = _kernel_rgbe(levels, g, cfa.pattern, lanes)
+    want = scale_down_planar(torch.from_numpy(levels)[None], tplan.dem_w, tplan.dem_h, 4,
+                             cfa=cfa).numpy()
+    if lanes == 1:
+        np.testing.assert_array_equal(got, want)
+        return
+    assert np.abs(got - want).max() <= 1e-6
+    params = tplan.params
+
+    def finish(rgbe):
+        return tengine.finish_planes(list(torch.from_numpy(rgbe)), params, out_bits=16,
+                                     linear=False, apply_curve=False, n_knots=0,
+                                     orientation_flips=(False, False, False), numerics="direct")
+    _assert_contract(finish(got), finish(want))
+
+
 def test_build_key_covers_every_source_and_header(tmp_path):
     """An edit to any csrc/*.cu or *.cuh (or a new one) changes the library's
     key, so a stale build is never reused. Needs no nvcc."""
@@ -226,8 +371,8 @@ def _rotated():
     return raw
 
 
-def _cropped():
-    raw = synthetic_bayer(606, 410, seed=9)
+def _cropped(make=synthetic_bayer):
+    raw = make(606, 410, seed=9)
     raw.crops = (3, 5, 7, 11)
     return raw
 
@@ -248,6 +393,8 @@ CARD_CASES = {   # (raw, maxwidth, bits), chip_smoke.py phase 1 at small size
     "rotate90-100": (_rotated, 100, 8),
     "cropped-100": (_cropped, 100, 8),
     "float-100": (_float_plane, 100, 8),
+    "bayer-33": (lambda: synthetic_bayer(600, 400), 33, 8),      # a 1-column block tile
+    "xtrans-cropped-20": (lambda: _cropped(synthetic_xtrans), 20, 8),
 }
 
 
@@ -297,7 +444,7 @@ def test_pipeline_thumbnail_routing_on_card(kind, maxwidth, scaled):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["bayer-100", "bayer-16", "bayer-100-16bit", "xtrans-100",
-                                  "rotate90-100"])
+                                  "rotate90-100", "bayer-33", "xtrans-cropped-20"])
 def test_batch_kernel_matches_single_launches_on_card(case):
     """One batched launch (shared geometry, per-image calibration) equals B
     single launches bit for bit and holds the plain version's contract."""
