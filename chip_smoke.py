@@ -41,6 +41,12 @@ Phases, each ending in torch.cuda.synchronize():
      its single-image plain develop, and the run make exactly 3 launches
      of develop_batch (2 Bayer buckets, 1 X-Trans) and none of the other
      kernels; at maxwidth 1024 exactly 3 of develop_scaled_batch only;
+  2d. the width-sharded batch path: the same files through
+     BatchEngine(devices=[cuda:0, cuda:0], spatial=2).develop_files, both
+     shards of each chunk on the one card. Every result must be bit-equal
+     to phase 2b's, and the run make exactly 6 shard launches (3 chunks x 2
+     shards) and no other; at maxwidth 1024 the thumbnails develop whole
+     (3 launches of develop_scaled_batch only);
   1c. the rotate kernel against its plain version: [4, 4000, 6000] f32
      (24 MP, as the staged path hands it to rotatecrop) rotated 0.05 with
      crop_left 0.05 (-> 5981x4458), rotated 0.1 with the same crop, rotated
@@ -48,6 +54,15 @@ Phases, each ending in torch.cuda.synchronize():
      a x2 downscale, and small degenerate geometries (an output 1 wide, a
      zero x-step, corners outside the source). Contract: max |diff| <= 2e-6
      (0 expected) and the same NaN and zero pattern;
+  1d. the width-sharded develop (develop_sp: one launch of the develop
+     kernel per column shard at its global column offset, a 1-column halo
+     exchange between the shards, the output assembled on the first
+     device): 60 MP Bayer 16-bit, 24 MP Bayer 8-bit and 26 MP X-Trans 8-bit
+     at spatial 2 and 3 (3 leaves an uneven last shard), every shard on one
+     card and, where there are two or more cards, across cards; and
+     develop_sp_batch at B=4 of 24 MP Bayer. Each must be bit-equal to the
+     unsharded develop / develop_batch, hold the contract against its plain
+     version, and make one launch per shard;
   2c. the staged edit path at full width: a 24 MP Bayer DNG through
      RenderService(device="cuda").open_file, then edits: rotation 0.05 +
      crop_left 0.05 (the first render), exposure +0.3, rotation 0.1, and
@@ -76,7 +91,12 @@ Phases, each ending in torch.cuda.synchronize():
      staging, dispatch, wait, scatter) and, under torch.profiler, its
      device split (H2D, kernel, D2H) and idle share; a batched launch at
      B=8 against a loop of 8 single launches (device ms back to back) and
-     the plain version (one call from idle), 24 MP 8-bit and to 1024.
+     the plain version (one call from idle), 24 MP 8-bit and to 1024;
+  3d. the width-sharded develop at spatial 2 on one card, 60 MP Bayer
+     16-bit and 24 MP Bayer 8-bit: device ms of an image's shard launches,
+     of the halo exchange, of the assembly, and of the whole develop_sp
+     beside the unsharded develop (the timing script's method); the plain
+     version one call from idle.
 
 It prints a JSON line of per-kernel results (launches on the main path,
 max |diff| against the plain version, times, and the bound: the least time
@@ -129,6 +149,10 @@ BIG = (9504, 6336)
 # 48 * 128 + 1.
 EDGE_BAYER = (6017, 4000)
 EDGE_XTRANS = (6145, 4168)
+# Phase 1d's width-sharded cases: (label, size, generator, bits).
+SP_CASES = (("60 MP Bayer 16-bit", BIG, traw.synthetic_bayer, 16),
+            ("24 MP Bayer 8-bit", BAYER, traw.synthetic_bayer, 8),
+            ("26 MP X-Trans 8-bit", XTRANS, traw.synthetic_xtrans, 8))
 PLAIN_RUNS = 5                        # one-call timings of plain versions and requests
 BATCH = tdk.BATCH                     # max_batch of the batch path
 BATCH_THUMB = 1024                    # thumbnail width of the batch path
@@ -189,7 +213,7 @@ def _plan(raw, bits, device, numerics="auto", maxwidth=0, exposure=0.0):
 
 
 def _reset_counts():
-    kdev.LAUNCHES = kdev.BATCH_LAUNCHES = 0
+    kdev.LAUNCHES = kdev.BATCH_LAUNCHES = kdev.SP_LAUNCHES = 0
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
     krot.LAUNCHES = 0
 
@@ -197,7 +221,7 @@ def _reset_counts():
 def _counts() -> dict:
     return {"develop": kdev.LAUNCHES, "develop_scaled": kds.LAUNCHES,
             "develop_batch": kdev.BATCH_LAUNCHES, "develop_scaled_batch": kds.BATCH_LAUNCHES,
-            "rotate": krot.LAUNCHES}
+            "rotate": krot.LAUNCHES, "develop_sp": kdev.SP_LAUNCHES}
 
 
 def _upload(raw, device):
@@ -579,6 +603,74 @@ def phase1b(device, bayer_bases, xtrans_bases) -> dict:
     return worst
 
 
+def _sp_devices(device, spatial) -> list[list]:
+    """The device rows a sharded case runs on: every shard on `device`, and
+    across cards too where there are two or more."""
+    rows = [[device] * spatial]
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        n = torch.cuda.device_count()
+        rows.append([torch.device("cuda", i % n) for i in range(spatial)])
+    return rows
+
+
+def phase1d(device, sp_cases, bayer_bases) -> int:
+    """The shard launches of the width-sharded develop (develop_sp, one
+    launch of csrc/develop.cu per column shard, 1-column halo exchange):
+    each case of `sp_cases` at spatial 2 and 3 must be bit-equal to the
+    unsharded develop and hold the contract against develop_sp_plain, with
+    SP_LAUNCHES equal to its shards; develop_sp_batch at B=4 of 24 MP Bayer
+    (per-image WB) bit-equal to develop_batch. Returns the largest |diff|
+    against the plain versions."""
+    worst = 0
+    for label, (w, h), make, bits in sp_cases:
+        raw = make(w, h, seed=0)
+        plan = _plan(raw, bits, device)
+        whole = kdev.develop(plan, _upload(raw, device))
+        for spatial in (2, 3):
+            shards = kdev.stage_sp(plan, raw.data, spatial)
+            for devices in _sp_devices(device, spatial):
+                kdev.SP_LAUNCHES = 0
+                got = kdev.develop_sp(plan, shards, devices)
+                launches = kdev.SP_LAUNCHES
+                plain = kdev.develop_sp_plain(plan, [s.to(d) for s, d in zip(shards, devices)])
+                _sync(device)
+                where = ("one card" if len(set(devices)) == 1 else
+                         f"{len(set(devices))} cards")
+                if device.type == "cuda" and launches != len(shards):
+                    raise AssertionError(f"{label} spatial {spatial}: {launches} shard launches, "
+                                         f"want {len(shards)}")
+                if not torch.equal(got, whole):
+                    raise AssertionError(f"{label} spatial {spatial} ({where}): differs from the "
+                                         f"unsharded develop in {int((got != whole).sum())} values")
+                worst = max(worst, _check(
+                    f"{label} {w}x{h} spatial {spatial} ({where}, shards "
+                    f"{kdev.sp_shards(plan.width, spatial)}, {launches} launches; bit-equal to "
+                    f"the unsharded develop) vs plain", got, plain))
+                del got, plain
+        del whole
+    raws = _variants(bayer_bases, 4)
+    plans = [_plan(r, 8, device, exposure=e) for r, e in zip(raws, (0.3, -0.2, 0.5, 0.1))]
+    whole = kdev.develop_batch(plans, torch.stack([_upload(r, device) for r in raws]))
+    for spatial in (2, 3):
+        shards = kdev.stage_sp(plans[0], [r.data for r in raws], spatial)
+        kdev.SP_LAUNCHES = 0
+        got = kdev.develop_sp_batch(plans, shards, [device] * spatial)
+        launches = kdev.SP_LAUNCHES
+        plain = kdev.develop_sp_batch_plain(plans, [s.to(device) for s in shards])
+        _sync(device)
+        if device.type == "cuda" and launches != len(shards):
+            raise AssertionError(f"develop_sp_batch spatial {spatial}: {launches} launches")
+        if not torch.equal(got, whole):
+            raise AssertionError(f"develop_sp_batch spatial {spatial}: differs from develop_batch")
+        worst = max(worst, _check(f"develop_sp_batch B=4 24 MP Bayer spatial {spatial} "
+                                  f"({launches} launches; bit-equal to develop_batch) vs plain",
+                                  got, plain))
+    del whole, got, plain
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return worst
+
+
 def _batch_files(td, bayer_bases, xtrans_bases):
     """16 Bayer DNGs (8 Normal, 8 Rotate90), 4 X-Trans DNGs and one corrupt
     file (at index 5); returns (paths, corrupt index)."""
@@ -594,10 +686,9 @@ def _batch_files(td, bayer_bases, xtrans_bases):
     return paths, 5
 
 
-def _run_batch(device, paths, corrupt, maxwidth, want_counts, label):
-    """develop_files over `paths` with the counts zeroed just before and read
-    just after; every result checked against its single-image plain develop."""
-    eng = BatchEngine(devices=[device], max_batch=BATCH, maxwidth=maxwidth)
+def _develop_files(eng, paths, corrupt, want_counts, label) -> list:
+    """eng.develop_files(paths, errors="skip") with the counts zeroed just
+    before and read just after; returns the results."""
     _reset_counts()
     t = time.perf_counter()
     outs = eng.develop_files(paths, errors="skip")
@@ -608,6 +699,14 @@ def _run_batch(device, paths, corrupt, maxwidth, want_counts, label):
         raise AssertionError(f"{label}: launches {counts}, want {want_counts}")
     if not isinstance(outs[corrupt], BatchError) or outs[corrupt]:
         raise AssertionError(f"{label}: corrupt slot holds {outs[corrupt]!r}")
+    return outs
+
+
+def _run_batch(device, paths, corrupt, maxwidth, want_counts, label) -> list:
+    """develop_files over `paths` (`_develop_files`), every result checked
+    against its single-image plain develop; returns the results."""
+    eng = BatchEngine(devices=[device], max_batch=BATCH, maxwidth=maxwidth)
+    outs = _develop_files(eng, paths, corrupt, want_counts, label)
     worst = 0
     for i, (path, out) in enumerate(zip(paths, outs)):
         if i == corrupt:
@@ -622,19 +721,42 @@ def _run_batch(device, paths, corrupt, maxwidth, want_counts, label):
         worst = max(worst, maxd)
     print(f"  {label}: slot {corrupt} is {outs[corrupt]!r}; the other {len(outs) - 1} agree "
           f"with their single-image plain develops, max |diff| {worst}")
-    return counts
+    return outs
 
 
-def phase2b(device, paths, corrupt) -> dict:
+def phase2b(device, paths, corrupt) -> tuple[dict, list]:
     """The batch path through BatchEngine.develop_files; returns the main
-    path's launches of each batched kernel."""
+    path's launches of each batched kernel and the full-size results."""
     none = {k: 0 for k in _counts()}
     full = _run_batch(device, paths, corrupt, 0, dict(none, develop_batch=3),
                       "develop_files, full size")
-    thumbs = _run_batch(device, paths, corrupt, BATCH_THUMB, dict(none, develop_scaled_batch=3),
-                        f"develop_files, maxwidth {BATCH_THUMB}")
-    return {"develop_batch": full["develop_batch"],
-            "develop_scaled_batch": thumbs["develop_scaled_batch"]}
+    _run_batch(device, paths, corrupt, BATCH_THUMB, dict(none, develop_scaled_batch=3),
+               f"develop_files, maxwidth {BATCH_THUMB}")
+    return {"develop_batch": 3, "develop_scaled_batch": 3}, full
+
+
+def phase2d(device, paths, corrupt, flat) -> int:
+    """The width-sharded batch path: BatchEngine(devices=[device, device],
+    spatial=2).develop_files over phase 2b's files, each chunk's two shards
+    on one card. Every result must equal phase 2b's spatial=1 result (`flat`)
+    bit for bit, and the run make 2 shard launches per chunk (2 Bayer
+    buckets and 1 X-Trans) and no other launch; at maxwidth 1024 the
+    thumbnails develop whole (develop_scaled_batch only). Returns the shard
+    launches."""
+    none = {k: 0 for k in _counts()}
+    on_card = device.type == "cuda"          # off the card the wrappers run plain versions
+    eng = BatchEngine(devices=[device, device], spatial=2, max_batch=BATCH)
+    outs = _develop_files(eng, paths, corrupt, dict(none, develop_sp=6) if on_card else none,
+                          "develop_files, full size, spatial=2 on one card")
+    for i, (out, want) in enumerate(zip(outs, flat)):
+        if i != corrupt and not np.array_equal(out, want):
+            raise AssertionError(f"spatial=2: {paths[i]} differs from spatial=1 in "
+                                 f"{int((out != want).sum())} values")
+    print(f"  the {len(outs) - 1} results are bit-equal to spatial=1's (phase 2b)")
+    eng = BatchEngine(devices=[device, device], spatial=2, max_batch=BATCH, maxwidth=BATCH_THUMB)
+    _develop_files(eng, paths, corrupt, dict(none, develop_scaled_batch=3) if on_card else none,
+                   f"develop_files, maxwidth {BATCH_THUMB}, spatial=2 (thumbnails develop whole)")
+    return 6
 
 
 def _device_split(prof, wall_ms):
@@ -761,6 +883,60 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> dict:
               f"loop runs {t['loop']['runs']}{', HOST-BOUND' if t['loop']['host_bound'] else ''}), "
               f"plain one call from idle (on {card})")
         times.update(_timing(name, t["batched"]["ms"], t["plain"]["ms"], bound, BATCH))
+    return times
+
+
+def sp_bound(plan, plane, shards) -> tuple[float, str]:
+    """The width-sharded develop's bound: the unsharded develop's
+    (`tdk.develop_bound`) plus the halo columns each shard reads again."""
+    px = plan.height * plan.width
+    halo = 2 * (len(shards) - 1) * plan.height * plane.element_size()
+    return tdk.roofline(px * plane.element_size() + halo, 3 * px * plan.out_bits // 8,
+                        px * (tdk.OPS_LEVELS + tdk.OPS_DEMOSAIC_BAYER + tdk.OPS_FINISH))
+
+
+def phase3d(device, card) -> dict:
+    """The width-sharded develop timed at spatial 2 on one card, 60 MP
+    Bayer 16-bit and 24 MP Bayer 8-bit: device ms (the timing script's
+    method, 3 distinct inputs) of the shard launches of one image, the halo
+    exchange, the assembly, and the whole develop_sp beside the unsharded
+    develop; the plain version from idle. Returns the 60 MP figures."""
+    times = {}
+    for label, (w, h), bits in (("60 MP Bayer 16-bit", BIG, 16), ("24 MP Bayer 8-bit", BAYER, 8)):
+        raws = [traw.synthetic_bayer(w, h, seed=30 + i) for i in range(tdk.INPUTS)]
+        plan = _plan(raws[0], bits, device, numerics="direct")
+        planes = [_upload(r, device) for r in raws]
+        staged = [[s.to(device) for s in kdev.stage_sp(plan, r.data, 2)] for r in raws]
+        x_offs = [x for x, _ in kdev.sp_shards(plan.width, 2)]
+        tables = kdev._device_tables(plan, device)
+        for shards in staged:
+            kdev.exchange_halos(shards)
+        outs = [[kdev._launch(plan, s[None], *tables, x_off=x)[0] for s, x in zip(shards, x_offs)]
+                for shards in staged]
+        t = {
+            "shard launches": tdk.device_ms([lambda s=s: [kdev._launch(plan, sh[None], *tables, x_off=x)
+                                                          for sh, x in zip(s, x_offs)]
+                                             for s in staged], device),
+            "halo exchange": tdk.device_ms([lambda s=s: kdev.exchange_halos(s) for s in staged],
+                                           device),
+            "assembly": tdk.device_ms([lambda o=o: kdev.assemble(o, device) for o in outs], device),
+            "develop_sp": tdk.device_ms([lambda s=s: kdev.develop_sp(plan, s, [device] * 2)
+                                         for s in staged], device),
+            "develop (unsharded)": tdk.device_ms([lambda p=p: kdev.develop(plan, p) for p in planes],
+                                                 device),
+        }
+        pms = _plain_ms(lambda: kdev.develop_sp_plain(plan, staged[0]), device)
+        bound = sp_bound(plan, planes[0], staged[0])
+        print(f"  develop_sp {label}, spatial 2 on one card (shards "
+              f"{kdev.sp_shards(plan.width, 2)}), device ms back to back: "
+              + "; ".join(f"{k} {v['ms']:.4f} (runs {v['runs']}"
+                          f"{', HOST-BOUND' if v['host_bound'] else ''})" for k, v in t.items())
+              + f"; plain {pms:.4f} ms one call from idle; bound {bound[0]:.4f} ms by {bound[1]} "
+                f"(on {card})")
+        if not times:
+            times.update(_timing("develop_sp", t["shard launches"]["ms"], pms, bound))
+        del raws, planes, staged, outs
+        torch.cuda.empty_cache()
     return times
 
 
@@ -1003,6 +1179,8 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "imagepipe_tpu/kernels/develop_scaled.py:846,861"),
     ("rotate", "imagepipe_tpu_torch/csrc/rotate.cu",
      "imagepipe_tpu/kernels/rotate_pallas.py:288"),
+    ("develop_sp", "imagepipe_tpu_torch/csrc/develop.cu",
+     "imagepipe_tpu/kernels/develop_pallas.py:680,701"),
 )
 
 
@@ -1033,6 +1211,9 @@ def main() -> int:
                   **phase1b(device, bayer_bases, xtrans_bases))
     print("phase 1c: the rotate kernel vs its plain version")
     errors["rotate"] = phase1c(device, BAYER)
+    print("phase 1d: the width-sharded develop's shard launches vs the unsharded kernel "
+          "and the plain version")
+    errors["develop_sp"] = phase1d(device, SP_CASES, bayer_bases)
     print("phase 2: main paths")
     launches, scaled_launches = phase2(device, BAYER)
     print("phase 2c: the staged edit path, RenderService")
@@ -1040,14 +1221,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         paths, corrupt = _batch_files(td, bayer_bases, xtrans_bases)
         print("phase 2b: the batch path, BatchEngine.develop_files")
+        batch_counts, flat = phase2b(device, paths, corrupt)
+        print("phase 2d: the width-sharded batch path, BatchEngine(spatial=2).develop_files")
+        sp_launches = phase2d(device, paths, corrupt, flat)
+        del flat
         counts = dict(develop=launches, develop_scaled=scaled_launches, rotate=rotate_launches,
-                      **phase2b(device, paths, corrupt))
+                      develop_sp=sp_launches, **batch_counts)
         print("phase 3: timing")
         times = phase3(device, BAYER, card)
         times.update(phase3c(device, BAYER, card))
         print("phase 3b: timing the batch path")
         bayer_paths = [p for p in paths[:17] if p != paths[corrupt]]
         times.update(phase3b(device, bayer_paths, bayer_bases, card))
+        print("phase 3d: timing the width-sharded develop")
+        times.update(phase3d(device, card))
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -13,29 +13,41 @@ for the plans they do not take (engine.py). Entry points run on the first
 CUDA device unless the caller passes `device="cpu"`; with no CUDA device
 and no device given they raise (`default_device`).
 
-Public surface: Pipeline, SRGBImage(16), PipelineSettings/Globals/Ops,
-Rotation, SplineFunc, CFA, Orientation, RawImage, ImageSource,
-RasterImage, color_conversions, simple_decode_8bit, default_device;
-the batch engine is `parallel.BatchEngine`.
+Public surface: the JAX package's (the reference's lib.rs:7-26): Pipeline,
+ImageSource, OpBuffer, SRGBImage(16), Rotation, SplineFunc,
+color_conversions, simple_decode_8bit, with MultiCache / PipelineCache,
+the camera registry (register_camera, register_alias, register_from_dng,
+register_sidecar_dir, known_cameras), from_rgb_str_vec, PipelineSettings/
+Globals/Ops, CFA, Orientation, RawImage, RasterImage; plus default_device.
+The batch engine is `parallel.BatchEngine`.
 """
 
 from . import color as color_conversions
+from .buffer import OpBuffer, from_rgb_str_vec
+from .cache import MultiCache
+from .cameras import (
+    known_cameras, register_alias, register_camera, register_from_dng,
+    register_sidecar_dir,
+)
 from .raw import CFA, Orientation, RawImage
 from .ops.transform import Rotation
 from .sources import ImageSource, RasterImage
 from .pipeline import (
-    Pipeline, PipelineGlobals, PipelineOps, PipelineSettings, SRGBImage,
-    SRGBImage16, default_device,
+    Pipeline, PipelineCache, PipelineGlobals, PipelineOps, PipelineSettings,
+    SRGBImage, SRGBImage16, default_device,
 )
 from .spline import SplineFunc
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "color_conversions", "Rotation", "Pipeline", "PipelineGlobals",
-    "PipelineOps", "PipelineSettings", "SRGBImage", "SRGBImage16", "CFA",
-    "Orientation", "RawImage", "ImageSource", "RasterImage", "SplineFunc",
-    "simple_decode_8bit", "default_device",
+    "color_conversions", "OpBuffer", "from_rgb_str_vec", "MultiCache",
+    "Rotation", "Pipeline", "PipelineCache", "PipelineGlobals", "PipelineOps",
+    "PipelineSettings", "SRGBImage", "SRGBImage16", "CFA", "Orientation",
+    "RawImage", "ImageSource", "RasterImage", "SplineFunc",
+    "simple_decode_8bit", "register_camera", "register_alias",
+    "register_from_dng", "register_sidecar_dir", "known_cameras",
+    "default_device",
 ]
 
 

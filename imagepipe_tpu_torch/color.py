@@ -25,7 +25,8 @@ __all__ = [
     "SRGB_D65_33", "SRGB_D65_XYZ_WHITE", "XYZ_D65_33", "XYZ_D65_34",
     "SRGB_D65_43", "TransformLUT", "resolve_numerics", "expand_srgb_gamma",
     "apply_srgb_gamma", "xyz_to_lab", "lab_to_xyz", "camera_to_lab_planar",
-    "lab_to_rgb_planar", "input8bit", "input16bit", "output8bit", "output16bit",
+    "lab_to_rgb_planar", "camera_to_lab", "lab_to_rgb", "temp_tint_to_rgb",
+    "input8bit", "input16bit", "output8bit", "output16bit",
 ]
 
 _f32 = np.float32
@@ -273,6 +274,33 @@ def lab_to_rgb_planar(rgbmatrix, lab_planes):
     g = (x * m[1, 0] + y * m[1, 1]) + z * m[1, 2]
     b = (x * m[2, 0] + y * m[2, 1]) + z * m[2, 2]
     return r, g, b
+
+
+def camera_to_lab(mul, cmatrix, pix: torch.Tensor, numerics: str) -> torch.Tensor:
+    """`camera_to_lab_planar` on pixels [..., 4] -> [..., 3]
+    (color_conversions.rs:41-56)."""
+    lab = camera_to_lab_planar(mul, cmatrix, pix.unbind(-1), numerics)
+    return torch.stack(lab, dim=-1)
+
+
+def lab_to_rgb(rgbmatrix, pix: torch.Tensor) -> torch.Tensor:
+    """`lab_to_rgb_planar` on pixels [..., 3] -> [..., 3]
+    (color_conversions.rs:58-65)."""
+    return torch.stack(lab_to_rgb_planar(rgbmatrix, pix.unbind(-1)), dim=-1)
+
+
+def temp_tint_to_rgb(temp: float, tint: float) -> tuple[float, float, float]:
+    """The linear RGB of a colour temperature and tint, a host-side preview
+    colour (color_conversions.rs:67-77)."""
+    from .cct import temp_to_xyz
+
+    xyz = temp_to_xyz(temp)
+    x, y, z = xyz[0], xyz[1] / tint, xyz[2]
+    m = XYZ_D65_33
+    r = x * m[0, 0] + y * m[0, 1] + z * m[0, 2]
+    g = x * m[1, 0] + y * m[1, 1] + z * m[1, 2]
+    b = x * m[2, 0] + y * m[2, 1] + z * m[2, 2]
+    return float(r), float(g), float(b)
 
 
 # Quantizers (color_conversions.rs:312-330): input8bit and input16bit scale

@@ -11,6 +11,11 @@
 // also replaces the batch-in-the-grid launcher
 // _develop_pallas_batchgrid_jit and the loop of single launches
 // _develop_pallas_batch_jit. A single image is the launch with B = 1.
+// A launch may develop one width shard of the crop (x_off, out_width): the
+// body of the width-sharded launchers _sp_local_develop and
+// _sp_local_develop_batch, whose halo exchange and assembly are host code
+// (kernels/develop.py::develop_sp). The TPU's 128-column halo is a lane
+// alignment; here a shard carries the stencil's 1-column radius.
 //
 // What bounds it. Memory traffic is far from the limit: at 24 MP it reads
 // 2 B/px of u16 sensor data and writes 3 B/px (6 B/px at 16-bit), 120 MB
@@ -83,11 +88,13 @@ constexpr int smem_bytes(int phases, int spline_stride) {
 }
 
 struct DevelopArgs {
-  const void* plane;        // B uncropped sensor planes, row-major
-  long long row_stride;     // elements per sensor row
+  const void* plane;        // B input planes, row-major
+  long long row_stride;     // elements per input row
   long long plane_stride;   // elements between two images' planes
-  int crop_x, crop_y;       // crop origin on the sensor
-  int height, width;        // cropped size = output size before flips
+  int in_x0;                // input column of cropped column 0 (< 0 for a width shard)
+  int crop_y;               // input row of cropped row 0
+  int height, width;        // cropped size: rows, and the columns that are valid
+  int x_off, out_width;     // the launch's output: cropped columns x_off .. x_off + out_width - 1
   finish::Calib calib;      // image 0's; image b's tables follow at b * stride
   const uint4* phases;      // [ph * pw] per-phase tables (demosaic_phases), shared
   int ph, pw;
@@ -126,8 +133,14 @@ struct Packed<uint16_t> {
   static constexpr int kBits = 16;
 };
 
-template <typename T, typename O>
+// kShard = false is the whole image: x_off = 0 and out_width = width are
+// compile-time facts there. Read at run time they cost the whole-image
+// launch ~1.7% on an H100 (the same arithmetic, scheduled worse), so the
+// shard form is compiled apart.
+template <typename T, typename O, bool kShard>
 __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) {
+  const int x_off = kShard ? a.x_off : 0;
+  const int out_width = kShard ? a.out_width : a.width;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_lv = reinterpret_cast<float*>(smem);                  // [kHaloH][kHaloW]
   float* s_cal = s_lv + kHaloH * kHaloW;                         // finish::load_calib
@@ -135,16 +148,24 @@ __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) 
 
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
   const int b = blockIdx.z;
-  const int x0 = blockIdx.x * kTileW;
+  const int x0 = x_off + blockIdx.x * kTileW;    // the tile's first column in the crop: every
+                                                 // test below is global
   const int y0 = blockIdx.y * kTileH;
   finish::load_calib(s_cal, a.calib, b, tid, kThreads);
   for (int i = tid; i < a.ph * a.pw; i += kThreads) s_phase[i] = a.phases[i];
 
   // Stage the tile and its halo as levels; samples outside the crop are 0
-  // and never summed.
+  // and never summed. A launch reads cropped columns x_off - 1 .. x_off +
+  // out_width only (a width shard's own columns and its 1-column halos),
+  // clamped to the crop. Sample (yy, xx) is at element base + yy * row_stride
+  // + xx of the plane: `base` may be negative (in_x0 < 0 for a shard), the
+  // sum is not for any sample read, and no pointer is formed before the
+  // allocation.
   {
-    const T* __restrict__ plane = static_cast<const T*>(a.plane) + b * a.plane_stride
-        + static_cast<long long>(a.crop_y) * a.row_stride + a.crop_x;
+    const T* __restrict__ plane = static_cast<const T*>(a.plane);
+    const long long base = b * a.plane_stride + static_cast<long long>(a.crop_y) * a.row_stride + a.in_x0;
+    const int lo = kShard ? max(0, x_off - 1) : 0;
+    const int hi = kShard ? min(a.width, x_off + out_width + 1) : a.width;
     const finish::Levels lv = finish::make_levels(a.calib.scal[b * 128], a.calib.scal[b * 128 + 1]);
     T raw[kStagePerThread];
     bool in[kStagePerThread];
@@ -153,8 +174,8 @@ __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) 
       const int e = tid + j * kThreads;
       const int r = e / kHaloW, c = e - r * kHaloW;
       const int yy = y0 - 1 + r, xx = x0 - 1 + c;
-      in[j] = e < kHaloH * kHaloW && yy >= 0 && yy < a.height && xx >= 0 && xx < a.width;
-      raw[j] = in[j] ? plane[static_cast<long long>(yy) * a.row_stride + xx] : T(0);
+      in[j] = e < kHaloH * kHaloW && yy >= 0 && yy < a.height && xx >= lo && xx < hi;
+      raw[j] = in[j] ? plane[base + static_cast<long long>(yy) * a.row_stride + xx] : T(0);
     }
 #pragma unroll
     for (int j = 0; j < kStagePerThread; ++j) {
@@ -166,7 +187,8 @@ __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) 
 
   const int y = y0 + threadIdx.y;
   const int xs = x0 + threadIdx.x * kPix;
-  if (y >= a.height || xs >= a.width) return;
+  const int x_end = x_off + out_width;
+  if (y >= a.height || xs >= x_end) return;
   // The whole halo inside the crop: every neighbour is valid.
   const bool interior = x0 >= 1 && y0 >= 1 && x0 + kTileW < a.width && y0 + kTileH < a.height;
   const bool row_up = y >= 1, row_down = y + 1 < a.height;
@@ -179,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) 
 #pragma unroll 1
   for (int i = 0; i < kPix; ++i) {
     const int x = xs + i;
-    if (x >= a.width) break;
+    if (x >= x_end) break;
     const float* lv = centre + i;
     float rgbe[4];
     if (a.mono) {
@@ -246,37 +268,45 @@ __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) 
     px = px + 1 == a.pw ? 0 : px + 1;
   }
 
-  // Store: one vector store per plane where the thread's four pixels are
-  // whole and aligned (width a multiple of 4), else one store per pixel.
-  const long long plane_px = static_cast<long long>(a.height) * a.width;
-  O* out = static_cast<O*>(a.out) + 3 * b * plane_px + static_cast<long long>(y) * a.width + xs;
-  const bool whole = (a.width & (kPix - 1)) == 0 && xs + kPix <= a.width;
+  // Store at output column xs - x_off: one vector store per plane where the
+  // thread's four pixels are whole and aligned (out_width a multiple of 4),
+  // else one store per pixel.
+  const int xl = xs - x_off;
+  const long long plane_px = static_cast<long long>(a.height) * out_width;
+  O* out = static_cast<O*>(a.out) + 3 * b * plane_px + static_cast<long long>(y) * out_width + xl;
+  const bool whole = (out_width & (kPix - 1)) == 0 && xl + kPix <= out_width;
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     O* o = out + r * plane_px;
     if (whole) {
       *reinterpret_cast<typename P::T*>(o) = q[r];
     } else {
-      for (int i = 0; i < kPix && xs + i < a.width; ++i) {
+      for (int i = 0; i < kPix && xl + i < out_width; ++i) {
         o[i] = static_cast<O>((q[r] >> (P::kBits * i)) & ((1u << P::kBits) - 1u));
       }
     }
   }
 }
 
-template <typename T, typename O>
-cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
+template <typename T, typename O, bool kShard>
+cudaError_t launch_as(const DevelopArgs& a, int batch, cudaStream_t stream) {
   const int smem = smem_bytes(a.ph * a.pw, a.calib.spline_stride);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        develop_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        develop_kernel<T, O, kShard>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 block(kThreadsX, kThreadsY);
-  const dim3 grid((a.width + kTileW - 1) / kTileW, (a.height + kTileH - 1) / kTileH, batch);
-  develop_kernel<T, O><<<grid, block, smem, stream>>>(a);
+  const dim3 grid((a.out_width + kTileW - 1) / kTileW, (a.height + kTileH - 1) / kTileH, batch);
+  develop_kernel<T, O, kShard><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, typename O>
+cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
+  return a.x_off == 0 && a.out_width == a.width ? launch_as<T, O, false>(a, batch, stream)
+                                                : launch_as<T, O, true>(a, batch, stream);
 }
 
 }  // namespace
@@ -284,13 +314,20 @@ cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
 // C entry point for ctypes: develop `batch` planes [batch, H0, W0] (image b
 // at plane + b * plane_stride elements) with per-image calibration scal
 // [batch, 8, 16] and spline [batch, 5, spline_stride] into out
-// [batch, 3, height, width]. phases: the [ph * pw] 16-byte per-phase tables
-// of the cropped CFA (kernels/develop.py::demosaic_phases). in_f32: 0 = u16
-// planes, 1 = f32 planes. out_bits: 8 or 16. Returns the cudaError_t of the
-// launch (0 = success).
+// [batch, 3, height, out_width]: the cropped columns x_off .. x_off +
+// out_width - 1 of a crop `width` columns wide, whose column xx is input
+// column in_x0 + xx and row yy input row crop_y + yy. The whole image is
+// x_off = 0, out_width = width, in_x0 = crop_x. A width shard is its own
+// columns with a 1-column halo each side (kernels/develop.py::develop_sp):
+// in_x0 = 1 - x_off, crop_y = 0; validity and CFA phase stay those of the
+// whole crop. phases: the [ph * pw] 16-byte per-phase tables of the cropped
+// CFA (kernels/develop.py::demosaic_phases). in_f32: 0 = u16 planes, 1 = f32
+// planes. out_bits: 8 or 16. Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
                                     long long plane_stride, long long row_stride,
-                                    int crop_x, int crop_y, int height, int width,
+                                    int in_x0, int crop_y, int height, int width,
+                                    int x_off, int out_width,
                                     const float* scal, const float* spline,
                                     int spline_stride, int n_knots,
                                     const void* phases, int ph, int pw, int mono,
@@ -299,10 +336,12 @@ extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
   a.plane = plane;
   a.row_stride = row_stride;
   a.plane_stride = plane_stride;
-  a.crop_x = crop_x;
+  a.in_x0 = in_x0;
   a.crop_y = crop_y;
   a.height = height;
   a.width = width;
+  a.x_off = x_off;
+  a.out_width = out_width;
   a.calib.scal = scal;
   a.calib.spline = spline;
   a.calib.spline_stride = spline_stride;
@@ -314,7 +353,8 @@ extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
   a.mono = mono;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (height <= 0 || width <= 0 || batch <= 0 || batch > 65535 || ph <= 0 || pw <= 0) {
+  if (height <= 0 || width <= 0 || batch <= 0 || batch > 65535 || ph <= 0 || pw <= 0
+      || x_off < 0 || out_width <= 0 || x_off + out_width > width || crop_y < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (in_f32) {

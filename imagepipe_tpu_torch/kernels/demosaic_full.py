@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from ..raw import CFA, PATTERN_TILE
 
-__all__ = ["OFFSETS_3X3", "neighbor_color_lookup", "stencil_demosaic_planes"]
+__all__ = ["OFFSETS_3X3", "neighbor_color_lookup", "stencil_demosaic_planes",
+           "stencil_demosaic_shard"]
 
 # 3x3 neighbourhood offsets in the reference's order (demosaic.rs:70-74).
 OFFSETS_3X3 = [(-1, -1), (-1, 0), (-1, 1),
@@ -56,19 +57,34 @@ def stencil_demosaic_planes(plane: torch.Tensor, cfa_name: str, height: int,
     """[H,W] f32 levels plane -> four [H,W] RGBE planes. Each colour averages
     its valid neighbours (edges: out-of-image neighbours do not count); the
     centre's own colour takes the centre sample; no neighbour gives 0."""
-    dev = plane.device
+    return stencil_demosaic_shard(F.pad(plane, (1, 1)), cfa_name, height, width, 0)
+
+
+def stencil_demosaic_shard(local: torch.Tensor, cfa_name: str, height: int,
+                           width: int, x_off: int) -> list[torch.Tensor]:
+    """The stencil demosaic of one width shard: `local` [H, w + 2] f32
+    levels holds the cropped columns x_off - 1 .. x_off + w (its own w
+    columns and a 1-column halo each side) of an image `width` columns
+    wide -> four [H, w] RGBE planes of columns x_off .. x_off + w - 1.
+    Validity and CFA colour are those of the whole image: a halo column
+    outside it is never summed. The whole image is the shard x_off = 0,
+    w = width."""
+    dev = local.device
     f = torch.float32
-    padded = F.pad(plane, (1, 1, 1, 1))
-    vmask = F.pad(torch.ones((height, width), dtype=f, device=dev), (1, 1, 1, 1))
+    w = local.shape[1] - 2
+    padded = F.pad(local, (0, 0, 1, 1))
+    cols = torch.arange(x_off - 1, x_off + w + 1, device=dev)
+    inside = ((cols >= 0) & (cols < width)).to(f)
+    vmask = F.pad(inside.expand(height, w + 2), (0, 0, 1, 1))
     lut = _lookup_cached(cfa_name)
     lut_t = torch.from_numpy(lut).to(dev)
     rows = (torch.arange(height, device=dev) % PATTERN_TILE)[:, None]
-    cols = (torch.arange(width, device=dev) % PATTERN_TILE)[None, :]
-    sums = [torch.zeros((height, width), dtype=f, device=dev) for _ in range(4)]
-    counts = [torch.zeros((height, width), dtype=f, device=dev) for _ in range(4)]
+    cols = (cols[1:-1] % PATTERN_TILE)[None, :]
+    sums = [torch.zeros((height, w), dtype=f, device=dev) for _ in range(4)]
+    counts = [torch.zeros((height, w), dtype=f, device=dev) for _ in range(4)]
     for i, (dy, dx) in enumerate(OFFSETS_3X3):
-        val = padded[1 + dy:1 + dy + height, 1 + dx:1 + dx + width]
-        valid = vmask[1 + dy:1 + dy + height, 1 + dx:1 + dx + width]
+        val = padded[1 + dy:1 + dy + height, 1 + dx:1 + dx + w]
+        valid = vmask[1 + dy:1 + dy + height, 1 + dx:1 + dx + w]
         color = lut_t[:, :, i][rows, cols]
         present = set(np.unique(lut[:, :, i]))
         for c in range(4):

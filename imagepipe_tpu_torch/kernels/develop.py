@@ -9,18 +9,25 @@ torch ops, like the JAX package applies them after its `pallas_call`.
 with its own calibration, in one launch of the same kernel (the image is
 blockIdx.z), in place of `_develop_pallas_batchgrid_jit` and the loop
 `_develop_pallas_batch_jit`; `develop` is its B = 1 case.
+`develop_sp(plan, plane_shards, devices)` and `develop_sp_batch` develop an
+image (a batch) width-sharded over several devices, one launch of the same
+kernel per column shard at its global column offset, with a 1-column halo
+exchange between the shards: the counterpart of `develop_pallas_sp` and of
+`_sp_local_develop(_batch)`.
 
-* Planes on the CPU go to the plain versions, `develop_plain` and
-  `develop_batch_plain`: the same develop written in plain PyTorch (crop ->
-  levels -> stencil demosaic -> finish_planes in 'direct' numerics). Planes
-  on a CUDA device launch the kernel, or the wrapper raises; nothing falls
-  back.
+* Planes on the CPU go to the plain versions, `develop_plain`,
+  `develop_batch_plain`, `develop_sp_plain` and `develop_sp_batch_plain`:
+  the same develop written in plain PyTorch (crop -> levels -> stencil
+  demosaic -> finish_planes in 'direct' numerics; the sharded ones develop
+  each shard from its own columns). Planes on a CUDA device launch the
+  kernel, or the wrapper raises; nothing falls back.
 * The kernel is built on first use by nvcc, with every other kernel of
   `csrc/`, into one library under `imagepipe_tpu_torch/build/` keyed by a
   hash of every source, header and flag (`build`), and bound with ctypes.
   Importing this module builds nothing.
-* `LAUNCHES` counts the launches of `develop` and `BATCH_LAUNCHES` those of
-  `develop_batch`, so a run can show its main path went through the kernel.
+* `LAUNCHES` counts the launches of `develop`, `BATCH_LAUNCHES` those of
+  `develop_batch` and `SP_LAUNCHES` the shard launches of `develop_sp(_batch)`,
+  so a run can show its main path went through the kernel.
 * Host tables reach the card from pinned memory without blocking the host
   (`upload`), so a caller can stage the next batch while this one runs. The
   kernel's demosaic reads a 16-byte table per CFA phase (`demosaic_phases`),
@@ -48,19 +55,25 @@ import numpy as np
 import torch
 
 from ..raw import CFA
-from ..engine import _develop_one
-from .demosaic_full import OFFSETS_3X3
+from ..engine import _develop_one, finish_planes
+from ..ops.gofloat import levels
+from .demosaic_full import OFFSETS_3X3, stencil_demosaic_shard
 
 __all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
+           "develop_sp", "develop_sp_plain", "develop_sp_batch", "develop_sp_batch_plain",
+           "sp_shards", "stage_sp", "exchange_halos", "assemble",
            "kernel_supported", "calib_tables", "batch_tables", "demosaic_phases",
            "develop_smem_bytes", "division_mismatches", "upload", "apply_flips", "build",
            "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
-           "BATCH_LAUNCHES", "MAX_PATTERN", "MAX_SMEM", "MAX_LSB", "MAX_FLIP_FRACTION"]
+           "BATCH_LAUNCHES", "SP_LAUNCHES", "MAX_PATTERN", "MAX_SMEM", "MAX_LSB",
+           "MAX_FLIP_FRACTION"]
 
-# Kernel launches by `develop` and by `develop_batch` since import (or since
-# a caller reset them to 0).
+# Kernel launches by `develop`, by `develop_batch` and the shard launches of
+# `develop_sp` and `develop_sp_batch` since import (or since a caller reset
+# them to 0).
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
+SP_LAUNCHES = 0
 
 # The cross-path contract: quantized outputs differ by at most 1 LSB, on
 # fewer than 2% of values.
@@ -148,7 +161,7 @@ def _library():
         lib = ctypes.CDLL(str(build()))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.develop_batch_launch.restype = i
-        lib.develop_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i, p, p, i, i,
+        lib.develop_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i, i, i, p, p, i, i,
                                              p, i, i, i, i, i, p, p]
         lib.develop_scaled_batch_launch.restype = i
         lib.develop_scaled_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i,
@@ -282,12 +295,13 @@ def _cfa_tables(plan, device):
 
 def _device_tables(plan, device):
     """(scal, spline, pattern, phases, n_knots): calib_tables on `device`,
-    memoized on the plan, and the CFA tables (`_cfa_tables`)."""
-    hit = getattr(plan, "_cuda_tables", None)
-    if hit is None or hit[0] != device:
+    memoized on the plan per device, and the CFA tables (`_cfa_tables`)."""
+    memo = plan.__dict__.setdefault("_cuda_tables", {})
+    hit = memo.get(device)
+    if hit is None:
         scal, spline, n_knots = calib_tables(plan)
-        hit = plan._cuda_tables = (device, (upload(scal, device), upload(spline, device), n_knots))
-    scal, spline, n_knots = hit[1]
+        hit = memo[device] = (upload(scal, device), upload(spline, device), n_knots)
+    scal, spline, n_knots = hit
     return (scal, spline, *_cfa_tables(plan, device), n_knots)
 
 
@@ -369,20 +383,28 @@ def _out(plan, batch: int, height: int, width: int, device) -> torch.Tensor:
                        dtype=torch.uint8 if plan.out_bits == 8 else torch.uint16)
 
 
-def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots) -> torch.Tensor:
-    """One launch over planes [B, H0, W0] -> unflipped [B, 3, H, W]."""
+def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots,
+            x_off: int | None = None) -> torch.Tensor:
+    """One launch over planes [B, H0, W0] -> unflipped [B, 3, H, W]. With
+    `x_off`, planes are width shards [B, H, w + 2] (`stage_sp`) of the crop's
+    columns x_off .. x_off + w - 1 -> [B, 3, H, w]."""
     smem = develop_smem_bytes(*pattern.shape, spline.shape[-1])
     if smem > MAX_SMEM:
         raise ValueError(f"develop kernel: a block needs {smem} B of shared memory "
                          f"(CFA {tuple(pattern.shape)}, spline stride {spline.shape[-1]}), "
                          f"more than {MAX_SMEM}")
-    out = _out(plan, planes.shape[0], plan.height, plan.width, planes.device)
+    if x_off is None:
+        x_off, out_width, in_x0, crop_y = 0, plan.width, plan.crop_x, plan.crop_y
+    else:
+        out_width = planes.shape[-1] - 2
+        in_x0, crop_y = 1 - x_off, 0
+    out = _out(plan, planes.shape[0], plan.height, out_width, planes.device)
     lib = _library()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
         rc = lib.develop_batch_launch(
             planes.data_ptr(), _element(planes), planes.shape[0], planes.stride(0),
-            planes.stride(1), plan.crop_x, plan.crop_y, plan.height, plan.width,
+            planes.stride(1), in_x0, crop_y, plan.height, plan.width, x_off, out_width,
             scal.data_ptr(), spline.data_ptr(), spline.shape[-1], n_knots,
             phases.data_ptr(), pattern.shape[0], pattern.shape[1],
             int(plan.mode == "mono"), int(plan.linear), plan.out_bits,
@@ -472,3 +494,190 @@ def develop_batch(plans, planes: torch.Tensor) -> torch.Tensor:
     global BATCH_LAUNCHES
     BATCH_LAUNCHES += 1
     return apply_flips(out, plans[0].orientation_flips)
+
+
+# -- the width-sharded develop ---------------------------------------------
+#
+# Counterpart of `_sp_local_develop` and `_sp_local_develop_batch`
+# (develop_pallas.py:680-721) and of their callers `develop_pallas_sp` and
+# the sp branch of BatchEngine._dispatch_pallas. An image's crop is cut
+# into column shards (`sp_shards`), one per device; a device may appear
+# more than once (two shards on one card). Each shard is staged with a
+# 1-column halo each side (`stage_sp`), the inner halos are copied from the
+# neighbouring shards on the devices (`exchange_halos`), each shard is one
+# launch of csrc/develop.cu at its global column offset, and the shards'
+# outputs are concatenated on the first device (`assemble`), where the
+# EXIF flips permute the whole image.
+
+def sp_shards(width: int, spatial: int) -> list[tuple[int, int]]:
+    """(x_off, w) of each column shard of a crop `width` wide split
+    `spatial` ways. Every shard but the last is the same whole number of
+    the kernel's 128-column tiles (the width over `spatial`, rounded up to a
+    tile) and the last takes the rest, so interior tiles and 4-pixel vector
+    stores stay in play: the counterpart of `sp_width_pad`
+    (develop_pallas.py:657-662), with nothing padded. A crop narrower than
+    spatial - 1 such shards gets fewer shards."""
+    if spatial < 1 or width < 1:
+        raise ValueError(f"sp_shards: width {width}, spatial {spatial}")
+    per = -(-width // (spatial * _TILE_W)) * _TILE_W
+    return [(x, min(per, width - x)) for x in range(0, width, per)]
+
+
+def stage_sp(plan, planes, spatial: int, pin: bool = False) -> list[torch.Tensor]:
+    """Host staging for the width-sharded develop (the counterpart of
+    `stage_plane_rows_np`, develop_pallas.py:665-677): the plan's crop of
+    `planes` (one [H0, W0] host array, or a sequence of B of them) cut into
+    the shards of `sp_shards(plan.width, spatial)`, each a host tensor
+    [H, w + 2] (or [B, H, w + 2]) holding its own columns at 1..w and zero
+    halo columns. `exchange_halos` fills the inner halos on the devices; the
+    outer ones stay zero and validity masks them off. pin: allocate in
+    pinned memory, for a copy to the card that does not block the host."""
+    single = getattr(planes, "ndim", None) == 2
+    seq = [np.asarray(planes)] if single else [np.asarray(p) for p in planes]
+    dtype = torch.from_numpy(seq[0][:0]).dtype
+    h, y0 = plan.height, plan.crop_y
+    shards = []
+    for x_off, w in sp_shards(plan.width, spatial):
+        buf = torch.empty((len(seq), h, w + 2), dtype=dtype, pin_memory=pin)
+        host = buf.numpy()
+        host[:, :, 0] = 0
+        host[:, :, -1] = 0
+        x0 = plan.crop_x + x_off
+        for i, p in enumerate(seq):
+            host[i, :, 1:w + 1] = p[y0:y0 + h, x0:x0 + w]
+        shards.append(buf[0] if single else buf)
+    return shards
+
+
+def exchange_halos(shards) -> None:
+    """Fill the inner halo columns of staged shards ([.., H, w + 2], in
+    column order) in place: shard i + 1's column 0 takes shard i's last own
+    column, shard i's last column takes shard i + 1's first own column.
+    Between two cards each is a peer-to-peer copy that torch orders on both
+    devices' current streams with CUDA events (a two-way barrier), never
+    with a host synchronize; on one card it is a copy on its stream."""
+    for left, right in zip(shards, shards[1:]):
+        right[..., 0].copy_(left[..., -2], non_blocking=True)
+        left[..., -1].copy_(right[..., 1], non_blocking=True)
+
+
+def assemble(outs, device) -> torch.Tensor:
+    """The shards' outputs [.., 3, H, w] concatenated along the width on
+    `device` (copies from other cards ordered by events, as above)."""
+    return torch.cat([o.to(device, non_blocking=True) for o in outs], dim=-1)
+
+
+def _x_offsets(shards) -> list[int]:
+    """The global column offset of each staged shard [.., H, w + 2]."""
+    return np.cumsum([0] + [s.shape[-1] - 2 for s in shards[:-1]]).tolist()
+
+
+def _place(plan, shards, devices, batch: bool) -> tuple[list, list[int]]:
+    """The shards on their devices and their column offsets; raises unless
+    they are what the shard launches take and cover the plan's crop."""
+    devices = [torch.device(d) for d in devices]
+    if not shards or len(shards) > len(devices):
+        raise ValueError(f"develop_sp: {len(shards)} shards for {len(devices)} devices")
+    if len({d.type for d in devices}) != 1:
+        raise ValueError(f"develop_sp: devices {devices} of more than one type")
+    placed = [s.to(d, non_blocking=True) for s, d in zip(shards, devices)]
+    for s in placed:
+        if s.dim() != (3 if batch else 2) or not s.is_contiguous():
+            raise ValueError(f"develop_sp: each shard must be one contiguous "
+                             f"{'[B, H, w + 2]' if batch else '[H, w + 2]'} tensor")
+        if s.dtype not in (torch.uint16, torch.float32):
+            raise TypeError(f"develop_sp: shard dtype {s.dtype}, want uint16 or float32")
+        if s.shape[-2] != plan.height or s.shape[-1] < 3 or s.shape[0] != placed[0].shape[0]:
+            raise ValueError(f"develop_sp: shard {tuple(s.shape)} for a crop of "
+                             f"{plan.height} rows")
+    x = sum(s.shape[-1] - 2 for s in placed)
+    if x != plan.width:
+        raise ValueError(f"develop_sp: the shards hold {x} columns of a crop {plan.width} wide")
+    if plan.out_bits not in (8, 16):
+        raise ValueError(f"develop_sp: out_bits {plan.out_bits}")
+    return placed, _x_offsets(placed)
+
+
+def _develop_shard_plain(plan, local: torch.Tensor, x_off: int) -> torch.Tensor:
+    """One shard [H, w + 2] of raw counts developed in plain PyTorch with
+    global validity and CFA colour -> unflipped [3, H, w]."""
+    p = plan.params
+    v = levels(local.float(), p["mins"][0], p["ranges"][0])
+    if plan.mode == "mono":
+        c = v[:, 1:-1].contiguous()
+        rgbe = [c, c, c, torch.zeros_like(c)]
+    else:
+        rgbe = stencil_demosaic_shard(v, plan.cfa_name, plan.height, plan.width, x_off)
+    return finish_planes(rgbe, p, out_bits=plan.out_bits, linear=plan.linear,
+                         apply_curve=plan.apply_curve, n_knots=plan.n_knots,
+                         orientation_flips=(False, False, False), numerics="direct")
+
+
+def develop_sp_plain(plan, plane_shards) -> torch.Tensor:
+    """`develop_sp` in plain PyTorch on the shards' devices: the halos
+    exchanged, each shard developed from its own columns
+    (`_develop_shard_plain`), the outputs assembled on the first shard's
+    device and flipped there."""
+    exchange_halos(plane_shards)
+    outs = [_develop_shard_plain(plan, s, x)
+            for s, x in zip(plane_shards, _x_offsets(plane_shards))]
+    return apply_flips(assemble(outs, plane_shards[0].device), plan.orientation_flips)
+
+
+def develop_sp_batch_plain(plans, planes_shards) -> torch.Tensor:
+    """`develop_sp_batch` in plain PyTorch: per image, `develop_sp_plain`'s
+    shard develops with its own calibration."""
+    exchange_halos(planes_shards)
+    x_offs = _x_offsets(planes_shards)
+    out = torch.stack([
+        assemble([_develop_shard_plain(p, s[i], x) for s, x in zip(planes_shards, x_offs)],
+                 planes_shards[0].device)
+        for i, p in enumerate(plans)])
+    return apply_flips(out, plans[0].orientation_flips)
+
+
+def develop_sp(plan, plane_shards, devices) -> torch.Tensor:
+    """Develop one image width-sharded over `devices` (shard i on
+    devices[i]; a device may repeat): `plane_shards` are `stage_sp`'s, on
+    the host or already on their devices. The halos are exchanged between
+    the devices, each shard is one launch of the develop kernel at its
+    column offset (SP_LAUNCHES counts them), and the quantized planar
+    [3, H', W'] output is assembled and flipped on devices[0]. CPU devices
+    take the plain version."""
+    shards, x_offs = _place(plan, plane_shards, devices, batch=False)
+    if shards[0].device.type == "cpu":
+        return develop_sp_plain(plan, shards)
+    exchange_halos(shards)
+    outs = []
+    for s, x in zip(shards, x_offs):
+        _check_kernel(plan, s.device)
+        outs.append(_launch(plan, s[None], *_device_tables(plan, s.device), x_off=x)[0])
+    global SP_LAUNCHES
+    SP_LAUNCHES += len(outs)
+    return apply_flips(assemble(outs, shards[0].device), plan.orientation_flips)
+
+
+def develop_sp_batch(plans, planes_shards, devices) -> torch.Tensor:
+    """Develop B images of one shape class width-sharded over `devices`,
+    plans[i] calibrating image i: `planes_shards` are `stage_sp`'s
+    [B, H, w + 2] shards. One launch per shard develops its columns of all
+    B images (blockIdx.z = image) -> quantized planar [B, 3, H', W'] on
+    devices[0]. CPU devices take the plain version."""
+    shards, x_offs = _place(plans[0], planes_shards, devices, batch=True)
+    if len(plans) != shards[0].shape[0]:
+        raise ValueError(f"develop_sp_batch: {len(plans)} plans for {shards[0].shape[0]} planes")
+    statics = plans[0].statics()
+    if any(p.statics() != statics for p in plans[1:]):
+        raise ValueError("develop_sp_batch: the plans of a batch must share their statics")
+    if shards[0].device.type == "cpu":
+        return develop_sp_batch_plain(plans, shards)
+    exchange_halos(shards)
+    tables, outs = {}, []
+    for s, x in zip(shards, x_offs):
+        _check_kernel(plans[0], s.device)
+        if s.device not in tables:
+            tables[s.device] = batch_tables(plans, s.device)
+        outs.append(_launch(plans[0], s, *tables[s.device], x_off=x))
+    global SP_LAUNCHES
+    SP_LAUNCHES += len(outs)
+    return apply_flips(assemble(outs, shards[0].device), plans[0].orientation_flips)

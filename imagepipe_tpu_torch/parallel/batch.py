@@ -12,9 +12,16 @@ a host thread pool, bucketed by shape class, and each bucket is developed
     kernel wrappers run their plain versions.
   * A bucket is keyed by the plan's statics plus the sensor plane's shape
     and dtype: a batched launch takes one row stride.
-  * Data parallel: chunks go round-robin over `devices`, every CUDA device
-    by default. Each chunk runs whole on one device, so nothing is padded.
-    There is no spatial (width-sharded) axis: ROADMAP A11.
+  * Devices form a grid (`make_batch_mesh`): rows of `spatial` devices.
+    Data parallel: chunks go round-robin over the rows, each chunk whole
+    on one row, so nothing is padded. Spatial: with `spatial` > 1 a chunk
+    of full-size kernel plans is width-sharded across its row
+    (`kernels.develop.develop_sp_batch`: one launch per column shard, a
+    1-column halo exchange between the shards, the output assembled on the
+    row's first device), the counterpart of the sp branch of the JAX
+    package's `_dispatch_pallas`. 'scaled' plans are never width-sharded
+    (their outputs are small) and eager plans are not yet (ROADMAP A11):
+    both run whole on the row's first device.
 
 Decode/compute overlap: `develop_files` dispatches a bucket the moment it
 fills while the pool keeps decoding. Dispatch does not wait for the card:
@@ -48,7 +55,7 @@ from ..kernels import develop_scaled as kds
 from ..pipeline import Pipeline, default_device
 from ..sources import ImageSource
 
-__all__ = ["BatchEngine", "BatchError", "default_decode_workers"]
+__all__ = ["BatchEngine", "BatchError", "default_decode_workers", "make_batch_mesh"]
 
 
 class BatchError:
@@ -83,6 +90,20 @@ def _all_cuda_devices() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def make_batch_mesh(devices=None, spatial: int = 1) -> list[list[torch.device]]:
+    """The devices (default every CUDA device) as rows of `spatial`, row
+    major: chunks go round-robin over the rows (the data-parallel axis) and
+    a row width-shards each image (the spatial axis). The counterpart of the
+    JAX package's `make_batch_mesh` (parallel/batch.py:58-65). A device may
+    appear more than once: [cuda:0, cuda:0] with spatial=2 puts both shards
+    on one card."""
+    devices = [torch.device(d) for d in (_all_cuda_devices() if devices is None else devices)]
+    if spatial < 1 or not devices or len(devices) % spatial:
+        raise ValueError(f"make_batch_mesh: {len(devices)} devices do not make rows "
+                         f"of spatial={spatial}")
+    return [devices[i:i + spatial] for i in range(0, len(devices), spatial)]
+
+
 def _timed_decode(path):
     t = time.perf_counter()
     src = decode_file(path)
@@ -92,27 +113,29 @@ def _timed_decode(path):
 class BatchEngine:
     """Develop many RAW files concurrently on one or more devices.
 
-    devices: the devices chunks go to in turn; default every CUDA device
-    (raises without one). out_bits: 8 (sRGB) or 16 (linear). max_batch:
-    images per launch. decode_workers: decode threads (default
-    `default_decode_workers()`). maxwidth / maxheight: thumbnail limits, 0
-    for none. executor: 'auto' or 'kernel' (the batched kernels for the
-    plans they take; the two are the same here, as no plan prefers the
-    eager engine) or 'eager'. inflight_batches: chunks left unfetched at
-    most. spatial: only 1 (a width-sharded axis is ROADMAP A11)."""
+    devices: the devices, default every CUDA device (raises without one);
+    a device may appear more than once. spatial: devices per row of the
+    grid (`make_batch_mesh`); chunks go to the rows in turn, and with
+    spatial > 1 a row width-shards each full-size kernel chunk, so
+    devices=["cuda:0", "cuda:0"], spatial=2 runs the sharded path on one
+    card. out_bits: 8 (sRGB) or 16 (linear). max_batch: images per launch.
+    decode_workers: decode threads (default `default_decode_workers()`).
+    maxwidth / maxheight: thumbnail limits, 0 for none. executor: 'auto' or
+    'kernel' (the batched kernels for the plans they take; the two are the
+    same here, as no plan prefers the eager engine) or 'eager'.
+    inflight_batches: chunks left unfetched at most."""
 
     def __init__(self, devices=None, out_bits: int = 8, max_batch: int = 8,
                  decode_workers: int | None = None, maxwidth: int = 0,
                  maxheight: int = 0, executor: str = "auto",
                  inflight_batches: int = 2, spatial: int = 1):
-        if spatial != 1:
-            raise NotImplementedError("BatchEngine spatial (width-sharded) axis: ROADMAP A11")
         if executor not in ("auto", "eager", "kernel"):
             raise ValueError(f"executor {executor!r}: 'auto', 'eager' or 'kernel'")
-        self.devices = [torch.device(d) for d in
-                        (_all_cuda_devices() if devices is None else devices)]
-        if not self.devices or len({d.type for d in self.devices}) != 1:
+        self.rows = make_batch_mesh(devices, spatial)
+        self.devices = [d for row in self.rows for d in row]
+        if len({d.type for d in self.devices}) != 1:
             raise ValueError(f"devices {self.devices}: one or more of one type")
+        self.spatial = spatial
         # 'direct' numerics on CUDA (the kernels' form), 'lut' on the CPU.
         self.numerics = cc.resolve_numerics("auto", self.devices[0])
         self.out_bits = out_bits
@@ -135,7 +158,7 @@ class BatchEngine:
         # Test/observability hook: when set to a list, (event, payload)
         # tuples are appended on every decode, dispatch, collect and error.
         self._events: list | None = None
-        self._next_device = 0
+        self._next_row = 0
 
     def _note(self, event: str, payload) -> None:
         if self._events is not None:
@@ -164,41 +187,55 @@ class BatchEngine:
         data = src.raw.data
         return tuple(sorted(plan.statics().items())), data.shape, data.dtype.str
 
-    def _develop(self, plans, planes: torch.Tensor) -> torch.Tensor:
+    def _sharded(self, plan) -> bool:
+        """A chunk is width-sharded across its row: full-size kernel plans
+        with spatial > 1 (the JAX package shards no 'scaled' plan,
+        parallel/batch.py:142-143)."""
+        return self.spatial > 1 and self._use_kernel(plan) and kdev.kernel_supported(plan)
+
+    def _develop(self, plans, staged, row) -> torch.Tensor:
+        """Upload a staged chunk and develop it: its shards across the row,
+        or whole on the row's first device."""
+        if isinstance(staged, list):
+            return kdev.develop_sp_batch(plans, staged, row)
+        planes = staged.to(row[0], non_blocking=True)
         if not self._use_kernel(plans[0]):
             return develop_batch_perimage([p.to(planes.device) for p in plans], planes)
         if plans[0].dem_path == "scaled":
             return kds.develop_scaled_batch(plans, planes)
         return kdev.develop_batch(plans, planes)
 
-    def _stage(self, chunk, pin: bool) -> torch.Tensor:
-        """The chunk's normalized sensor planes stacked on the host."""
-        first = normalize_plane_np(chunk[0][2], chunk[0][1].raw.data)
-        dtype = torch.from_numpy(first[:0]).dtype
-        buf = torch.empty((len(chunk), *first.shape), dtype=dtype, pin_memory=pin)
+    def _stage(self, chunk, pin: bool):
+        """The chunk's normalized sensor planes on the host: stacked
+        [B, H0, W0], or cut into its row's width shards (`kdev.stage_sp`)."""
+        planes = [normalize_plane_np(plan, src.raw.data) for _, src, plan in chunk]
+        if self._sharded(chunk[0][2]):
+            return kdev.stage_sp(chunk[0][2], planes, self.spatial, pin=pin)
+        dtype = torch.from_numpy(planes[0][:0]).dtype
+        buf = torch.empty((len(chunk), *planes[0].shape), dtype=dtype, pin_memory=pin)
         host = buf.numpy()
-        for i, (_, src, plan) in enumerate(chunk):
-            host[i] = normalize_plane_np(plan, src.raw.data)
+        for i, plane in enumerate(planes):
+            host[i] = plane
         return buf
 
     def _dispatch_chunk(self, chunk):
-        """Stage one bucket chunk and enqueue its develop on the next device.
+        """Stage one bucket chunk and enqueue its develop on the next row.
         Returns (output on the host, event or None): on CUDA the output is a
         pinned buffer that is complete once the event has fired."""
-        device = self.devices[self._next_device % len(self.devices)]
-        self._next_device += 1
+        row = self.rows[self._next_row % len(self.rows)]
+        self._next_row += 1
+        device = row[0]
         plans = [plan for _, _, plan in chunk]
         t0 = time.perf_counter()
         if device.type != "cuda":
-            planes = self._stage(chunk, pin=False).to(device)
+            staged = self._stage(chunk, pin=False)
             t1 = time.perf_counter()
-            out, done = self._develop(plans, planes), None
+            out, done = self._develop(plans, staged, row), None
         else:
             with torch.cuda.device(device):
                 staged = self._stage(chunk, pin=True)
                 t1 = time.perf_counter()
-                planes = staged.to(device, non_blocking=True)
-                dev_out = self._develop(plans, planes)
+                dev_out = self._develop(plans, staged, row)
                 out = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
                 out.copy_(dev_out, non_blocking=True)
                 done = torch.cuda.Event()

@@ -99,9 +99,14 @@ class EditSession:
             return self.pipeline.to_serial()
 
     def load_settings(self, serial: str) -> None:
+        """Replace the ops' settings with a `save_settings` serial. The
+        session keeps its staged routing (`use_fastpath`, which
+        `RenderService.open_source` sets): the JAX package's session drops
+        it here, and a raster session then bypasses its cache."""
         with self._lock:
-            self.pipeline = Pipeline.new_from_serial(
-                self.pipeline.globals.image, serial, self.pipeline.device)
+            old = self.pipeline
+            self.pipeline = Pipeline.new_from_serial(old.globals.image, serial, old.device)
+            self.pipeline.globals.settings.use_fastpath = old.globals.settings.use_fastpath
 
 
 class RenderService:

@@ -294,9 +294,10 @@ def test_jax_engine_fails_on_mixed_sensor_sizes():
 
 
 def test_batch_engine_needs_a_device_or_cuda():
-    """No devices given means every CUDA device; without one it raises. A
-    spatial axis raises naming ROADMAP A11; devices of mixed types and an
-    unknown executor are refused."""
+    """No devices given means every CUDA device; without one it raises. The
+    spatial axis takes rows of `spatial` devices and refuses a device count
+    that is not a multiple of it, or spatial < 1; devices of mixed types and
+    an unknown executor are refused."""
     if torch.cuda.is_available():
         assert BatchEngine().devices == [torch.device("cuda", i)
                                          for i in range(torch.cuda.device_count())]
@@ -304,8 +305,11 @@ def test_batch_engine_needs_a_device_or_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BatchEngine()
     assert BatchEngine(devices=["cpu"]).numerics == "lut"
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        BatchEngine(devices=["cpu"], spatial=2)
+    eng = BatchEngine(devices=["cpu"] * 4, spatial=2)
+    assert eng.rows == [[torch.device("cpu")] * 2] * 2
+    for devices, spatial in ((["cpu"] * 3, 2), (["cpu"], 0), (["cpu"], -1)):
+        with pytest.raises(ValueError, match="rows of spatial"):
+            BatchEngine(devices=devices, spatial=spatial)
     with pytest.raises(ValueError, match="one type"):
         BatchEngine(devices=["cpu", "meta"])
     with pytest.raises(ValueError, match="executor"):

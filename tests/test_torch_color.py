@@ -102,6 +102,34 @@ def test_lab_to_rgb_planar():
 
 
 @pytest.mark.parametrize("mode", MODES)
+def test_camera_to_lab_pixels(mode):
+    """The [..., 4] -> [..., 3] form, on a [100, 200, 4] image of pixels."""
+    planes, mul, cm = _camera_planes(seed=3)
+    pix = np.stack(planes, axis=-1).reshape(100, 200, 4)
+    want = _jax(jcc.camera_to_lab, mode, mul, cm, pix)
+    got = tcc.camera_to_lab(mul, cm, _t(pix), mode).numpy()
+    assert got.shape == want.shape == (100, 200, 3)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=LAB_ATOL)
+
+
+def test_lab_to_rgb_pixels():
+    rng = np.random.default_rng(4)
+    pix = np.stack([rng.uniform(0.0, 1.0, 20000), rng.uniform(0.3, 0.7, 20000),
+                    rng.uniform(0.3, 0.7, 20000)], axis=-1).astype(np.float32).reshape(100, 200, 3)
+    want = np.asarray(jcc.lab_to_rgb(jcc.XYZ_D65_33, pix))
+    got = tcc.lab_to_rgb(tcc.XYZ_D65_33, _t(pix)).numpy()
+    assert got.shape == want.shape == (100, 200, 3)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=LAB_ATOL)
+
+
+@pytest.mark.parametrize("temp,tint", [(2000.0, 1.0), (5000.0, 0.9), (6504.0, 1.0),
+                                       (9000.0, 1.2), (15000.0, 1.05)])
+def test_temp_tint_to_rgb(temp, tint):
+    """Host float math on the same constants and the same CCT table: equal."""
+    assert tcc.temp_tint_to_rgb(temp, tint) == jcc.temp_tint_to_rgb(temp, tint)
+
+
+@pytest.mark.parametrize("mode", MODES)
 def test_apply_srgb_gamma(mode):
     v = np.clip(_inputs(), 0.0, 1.0)
     want = _jax(jcc.apply_srgb_gamma, mode, v)

@@ -160,6 +160,16 @@ assert len(svc.cache) == 8
 
 outs = BatchEngine(devices=["cpu"], max_batch=2).develop_files([path, path, erf])
 assert [o.shape for o in outs] == [(48, 64, 3), (48, 64, 3), (32, 48, 3)]
+outs = BatchEngine(devices=["cpu"] * 2, spatial=2).develop_files([path, erf])
+assert [o.shape for o in outs] == [(48, 64, 3), (32, 48, 3)]
+# The width-sharded develop (its plain version on CPU devices).
+from imagepipe_tpu_torch.engine import make_develop_plan
+from imagepipe_tpu_torch.kernels import develop as kdev
+wide = raw.synthetic_xtrans(300, 24, seed=2)
+plan = make_develop_plan(tip.Pipeline.new_from_source(tip.ImageSource.from_raw(wide), "cpu"),
+                         numerics="direct")
+sharded = kdev.develop_sp(plan, kdev.stage_sp(plan, wide.data, 3), ["cpu"] * 3)
+assert sharded.shape == (3, 24, 300)
 # cameras' lazy `from .color import SRGB_D65_33` resolves to the port's module.
 m = cameras.xyz_to_cam_from_cam2srgb([[1, 0, 0], [0, 1, 0], [0, 0, 1]])
 assert m.shape == (4, 3)

@@ -43,6 +43,14 @@ def _assert_contract(got, want):
     assert maxd <= MAX_LSB and frac < MAX_FLIP_FRACTION, (maxd, frac)
 
 
+@pytest.mark.parametrize("name", jip.__all__)
+def test_public_surface_has_the_jax_packages_names(name):
+    """Every public name of the JAX package (the reference's lib.rs
+    surface) is public in the port too, and of the same kind."""
+    assert name in tip.__all__
+    assert callable(getattr(tip, name)) == callable(getattr(jip, name))
+
+
 @pytest.mark.parametrize("make", [synthetic_bayer, synthetic_xtrans, synthetic_mono])
 @pytest.mark.parametrize("bits", [8, 16])
 def test_output_matches_jax(tmp_path, make, bits):
@@ -219,10 +227,11 @@ def test_cli_on_dng_and_png(tmp_path, bayer_dng, capsys):
 
 def test_out_of_slice_entry_points_raise(bayer_dng, tmp_path):
     """What is still unported raises naming its ROADMAP item: the
-    width-sharded and multi-host engines (A11). The staged path, rotatecrop
-    and the service, which raised A5, A9 and A10 before they were ported,
-    now run (tests/test_torch_staged.py, test_torch_service.py): a cache,
-    `run()`, each op's run, a rotation and an edited raster all develop."""
+    multi-host engine (A11). The staged path, rotatecrop, the service and
+    the batch engine's width-sharded axis, which raised A5, A9, A10 and A11
+    before they were ported, now run (tests/test_torch_staged.py,
+    test_torch_service.py, test_torch_sp.py): a cache, `run()`, each op's
+    run, a rotation, an edited raster and a spatial=2 engine all develop."""
     from PIL import Image
 
     from imagepipe_tpu_torch.cache import MultiCache
@@ -242,8 +251,13 @@ def test_out_of_slice_entry_points_raise(bayer_dng, tmp_path):
     assert RenderService(device="cpu").cache.total_bytes == 0
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         MultiHostBatchEngine()
-    # The batch engine is ported; its width-sharded axis is not.
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # The batch engine and its width-sharded axis are ported: spatial=2
+    # develops, bit-equal to spatial=1; a device count that does not fill
+    # rows of `spatial` is refused.
+    source = p.globals.image
+    sharded = BatchEngine(devices=["cpu", "cpu"], spatial=2).develop_sources([source])
+    np.testing.assert_array_equal(sharded[0], BatchEngine(devices=["cpu"]).develop_sources([source])[0])
+    with pytest.raises(ValueError, match="rows of spatial"):
         BatchEngine(devices=["cpu"], spatial=2)
 
 

@@ -91,6 +91,39 @@ def test_service_settings_roundtrip():
     _assert_contract(outs[1], outs[0])
 
 
+def _raster_source(module, seed):
+    rng = np.random.default_rng(seed)
+    return module.from_raster(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+
+
+def test_service_load_settings_keeps_the_staged_route():
+    """A raster session with default ops after save_settings/load_settings
+    still renders staged: through its session cache, whose entries grow."""
+    svc = TService(cache_bytes=100 << 20, device="cpu")
+    s = svc.open_source("r", _raster_source(TSource, 7))
+    s.load_settings(s.save_settings())
+    assert s.pipeline.globals.settings.use_fastpath is False
+    first = s.render()
+    assert len(svc.cache) == 8 and s.cache_bytes() > 0
+    s.apply({"basecurve": {"exposure": 0.3}})
+    s.render()
+    assert len(svc.cache) > 8
+    assert first.data.shape == (48, 64, 3)
+
+
+def test_jax_service_load_settings_drops_the_staged_route():
+    """The JAX package's session loses its staged routing on load_settings
+    (ROADMAP C): the raster renders through the fast path and the cache
+    stays empty. The port keeps the route (test above)."""
+    svc = JService(cache_bytes=100 << 20)
+    s = svc.open_source("r", _raster_source(JSource, 7))
+    assert s.pipeline.globals.settings.use_fastpath is False
+    s.load_settings(s.save_settings())
+    assert s.pipeline.globals.settings.use_fastpath is True
+    s.render()
+    assert len(svc.cache) == 0
+
+
 def test_service_two_sessions_share_cache():
     svcs = _services(500 << 20)
     _open(svcs, "x", 96, 64, 5)
