@@ -50,10 +50,17 @@ Phases, each ending in torch.cuda.synchronize():
   1c. the rotate kernel against its plain version: [4, 4000, 6000] f32
      (24 MP, as the staged path hands it to rotatecrop) rotated 0.05 with
      crop_left 0.05 (-> 5981x4458), rotated 0.1 with the same crop, rotated
-     0.5 (45 degrees, 7071x7071, half the windows empty), rotated 0.05 with
-     a x2 downscale, and small degenerate geometries (an output 1 wide, a
-     zero x-step, corners outside the source). Contract: max |diff| <= 2e-6
-     (0 expected) and the same NaN and zero pattern;
+     0.5 (45 degrees, 7071x7071, half the output outside the source),
+     rotated 0.05 from the 5999x3999 stage the first render of phase 2c
+     resamples (an odd width), rotated 0.05 with a x2 and a x8 downscale,
+     the same source with NaN
+     and +-Inf planted at 0.05 and at 45 degrees, and small degenerate
+     geometries (an output 1 wide, 1 high, a zero x-step, corners outside
+     the source). Contract: max |diff| <= 2e-6 (0 expected) and the same
+     NaN and zero pattern. Routes: the x8 downscale, the outputs 1 wide
+     and 1 high and the corners outside the source must take the kernel's
+     direct route (one direct launch each), every other case its staged
+     route;
   1d. the width-sharded develop (develop_sp: one launch of the develop
      kernel per column shard at its global column offset, a 1-column halo
      exchange between the shards, the output assembled on the first
@@ -133,9 +140,7 @@ from imagepipe_tpu_torch.hasher import BufHasher
 from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
 from imagepipe_tpu_torch.kernels import rotate as krot
-from imagepipe_tpu_torch.ops.rotatecrop import OpRotateCrop
 from imagepipe_tpu_torch.parallel import BatchEngine, BatchError
-from imagepipe_tpu_torch.scaling import rotated_geometry
 from imagepipe_tpu_torch.service import RenderService
 from imagepipe_tpu_torch.sources import ImageSource, image_content_hash
 
@@ -157,22 +162,19 @@ PLAIN_RUNS = 5                        # one-call timings of plain versions and r
 BATCH = tdk.BATCH                     # max_batch of the batch path
 BATCH_THUMB = 1024                    # thumbnail width of the batch path
 
-# The card's peaks, the develop kernels' bounds and the like-for-like timing
-# (device ms over launches back to back, cold inputs) are the timing
-# script's: scripts/time_develop_kernels.py.
-# rotate.cu per window sample: dx (sub, div), dx^2, two subs for the
-# weight, a product and a sum per channel, the count sum; per window row:
-# dy (sub, div) and dy^2; per output pixel: 6 adds of row and column terms
-# and one division per channel.
-OPS_ROTATE_SAMPLE = 6           # plus 2 per channel
-OPS_ROTATE_ROW = 3
-OPS_ROTATE_PIXEL = 6            # plus 1 per channel
+# The card's peaks, the kernels' bounds (OPS_*, the rotate kernel's over
+# each pixel's valid window) and the like-for-like timing (device ms over
+# launches back to back, cold inputs) are the timing script's:
+# scripts/time_develop_kernels.py.
 
 # The staged edit path: the 24 MP source of the rotate kernel is the
-# demosaic stage, planar [4, H, W] f32, and the edits of phase 2c.
-ROTATE_CASES = (("rotation 0.05, crop_left 0.05", 0.05, 0.05),
-                ("rotation 0.1, crop_left 0.05", 0.1, 0.05),
-                ("rotation 0.5 (45 degrees)", 0.5, 0.0))
+# demosaic stage, planar [4, H, W] f32, rotated by rotatecrop at these
+# (label, rotation, crop_left); and the edits of phase 2c.
+ROTATE_CASES = tdk.ROTATE_CASES
+# Non-finite values planted in phase 1c's 24 MP source: of each of NaN,
+# +Inf and -Inf, this many at seeded positions (about half the staged tiles'
+# boxes then hold one and take the full walk).
+ROTATE_NONFINITE = 3000
 # (label, patch, rotate launches, cache entries after it). The entries
 # follow the reference's hash chain: the settings, demosaic size included,
 # come first, and size planning asks a 6000x4000 frame rotated 0.05 for a
@@ -215,7 +217,7 @@ def _plan(raw, bits, device, numerics="auto", maxwidth=0, exposure=0.0):
 def _reset_counts():
     kdev.LAUNCHES = kdev.BATCH_LAUNCHES = kdev.SP_LAUNCHES = 0
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
-    krot.LAUNCHES = 0
+    krot.LAUNCHES = krot.DIRECT_LAUNCHES = 0
 
 
 def _counts() -> dict:
@@ -948,20 +950,26 @@ def _rotate_source(device, shape, seed) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
 
 
-def _rotatecrop_geometry(rotation, crop_left, width, height):
-    """(topleft, topright, bottomleft, nwidth, nheight) of rotatecrop at
-    these settings on a width x height demosaic stage."""
-    op = OpRotateCrop()
-    op.rotation, op.crop_left = rotation, crop_left
-    return op.geometry(width, height)
+def _plant_nonfinite(src, seed) -> torch.Tensor:
+    """`src` with ROTATE_NONFINITE each of NaN, +Inf and -Inf written at
+    seeded positions (in place)."""
+    gen = torch.Generator(device=src.device).manual_seed(seed)
+    flat = src.view(-1)
+    at = torch.randint(0, flat.numel(), (3, ROTATE_NONFINITE), generator=gen, device=src.device)
+    for row, value in zip(at, (float("nan"), float("inf"), float("-inf"))):
+        flat[row] = value
+    return src
 
 
-def _check_rotate(label, src, geometry) -> float:
+def _check_rotate(label, src, geometry, direct) -> float:
     """The rotate kernel against its plain version on `src`: max |diff| <=
-    krot.MAX_ABS_DIFF and the same NaN and zero pattern; returns max |diff|."""
+    krot.MAX_ABS_DIFF and the same NaN and zero pattern, and on the card
+    `direct` (0 or 1) launches on the direct route; returns max |diff|."""
     c, h, w = src.shape
     tl, tr, bl, nw, nh = geometry
+    before = krot.DIRECT_LAUNCHES
     got = krot.rotate_resample_planar(src, w, h, tl, tr, bl, nw, nh, c)
+    routed = krot.DIRECT_LAUNCHES - before
     want = krot.rotate_resample_plain(src, w, h, tl, tr, bl, nw, nh, c)
     _sync(src.device)
     if got.shape != want.shape:
@@ -969,34 +977,55 @@ def _check_rotate(label, src, geometry) -> float:
     same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
     same_zero = torch.equal(got == 0, want == 0)
     maxd = float((got - want).abs().nan_to_num(0.0).max())
-    print(f"  {label}: {w}x{h} -> {nw}x{nh}, max |diff| {maxd}, "
-          f"NaN pattern {'same' if same_nan else 'DIFFERS'}, zero pattern "
-          f"{'same' if same_zero else 'DIFFERS'} ({int((got == 0).sum())} zeros of {got.numel()})")
+    route = ("plain version" if src.device.type != "cuda"
+             else "direct route" if routed else "staged route")
+    print(f"  {label}: {w}x{h} -> {nw}x{nh}, {route}, max |diff| {maxd}, "
+          f"NaN pattern {'same' if same_nan else 'DIFFERS'} ({int(torch.isnan(got).sum())} NaN), "
+          f"zero pattern {'same' if same_zero else 'DIFFERS'} ({int((got == 0).sum())} zeros "
+          f"of {got.numel()})")
     if not (same_nan and same_zero) or maxd > krot.MAX_ABS_DIFF:
         raise AssertionError(f"{label}: max |diff| {maxd} (limit {krot.MAX_ABS_DIFF}), "
                              f"NaN pattern same {same_nan}, zero pattern same {same_zero}")
+    if src.device.type == "cuda" and routed != direct:
+        raise AssertionError(f"{label}: {routed} direct-route launches, want {direct}")
     return maxd
 
 
 def phase1c(device, bayer) -> float:
     """The rotate kernel vs its plain version at the staged path's 24 MP
-    shapes and at degenerate geometries; returns the largest |diff|."""
+    shapes, on a source with non-finite values, and at degenerate
+    geometries, with the route of each; returns the largest |diff|."""
     width, height = bayer
     src = _rotate_source(device, (4, height, width), 5)
     worst = 0.0
     for label, rotation, crop in ROTATE_CASES:
-        worst = max(worst, _check_rotate(label, src, _rotatecrop_geometry(
-            rotation, crop, width, height)))
-    tl, tr, bl, nw, nh = _rotatecrop_geometry(0.05, 0.05, width, height)
-    worst = max(worst, _check_rotate("rotation 0.05, x2 downscale", src,
-                                     (tl, tr, bl, nw // 2, nh // 2)))
+        worst = max(worst, _check_rotate(label, src, tdk.rotatecrop_geometry(
+            rotation, crop, width, height), direct=0))
+    # The first render's demosaic stage is 5999 x 3999: rows of an odd
+    # width take the staged route's 4-byte copies.
+    odd = src[:, :height - 1, :width - 1].contiguous()
+    worst = max(worst, _check_rotate("rotation 0.05, crop_left 0.05, odd width", odd,
+                                     tdk.rotatecrop_geometry(0.05, 0.05, width - 1, height - 1),
+                                     direct=0))
+    del odd
+    tl, tr, bl, nw, nh = tdk.rotatecrop_geometry(0.05, 0.05, width, height)
+    for factor, direct in ((2, 0), (8, 1)):
+        worst = max(worst, _check_rotate(f"rotation 0.05, x{factor} downscale", src,
+                                         (tl, tr, bl, nw // factor, nh // factor), direct))
+    _plant_nonfinite(src, 8)
+    for label, rotation, crop in (ROTATE_CASES[0], ROTATE_CASES[2]):
+        worst = max(worst, _check_rotate(
+            f"{label}, {ROTATE_NONFINITE} each of NaN, +Inf, -Inf planted", src,
+            tdk.rotatecrop_geometry(rotation, crop, width, height), direct=0))
     small = _rotate_source(device, (4, 100, 100), 6)
-    for label, geometry in (("output 1 wide", ((0, 0), (99, 10), (-10, 99), 1, 50)),
-                            ("output 1 high", ((0, 0), (99, 10), (-10, 99), 50, 1)),
-                            ("zero x-step", ((5, 0), (5, 40), (0, 99), 50, 50)),
-                            ("corners outside the source",
-                             ((-40, 80), (120, -30), (-90, -20), 40, 30))):
-        worst = max(worst, _check_rotate(label, small, geometry))
+    for label, geometry, direct in (
+            ("output 1 wide", ((0, 0), (99, 10), (-10, 99), 1, 50), 1),
+            ("output 1 high", ((0, 0), (99, 10), (-10, 99), 50, 1), 1),
+            ("zero x-step", ((5, 0), (5, 40), (0, 99), 50, 50), 0),
+            # A x4 sheared, mirrored downscale: two buffers of its tiles'
+            # boxes (the whole source) exceed a block's shared memory.
+            ("corners outside the source", ((-40, 80), (120, -30), (-90, -20), 40, 30), 1)):
+        worst = max(worst, _check_rotate(label, small, geometry, direct))
     del src, small
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -1100,37 +1129,22 @@ def phase2c(device, bayer, card) -> int:
     return launches
 
 
-def rotate_bound(channels, height, width, geometry) -> tuple[float, str]:
-    """The rotate kernel's bound: the source read once, the output written
-    once, and the operations of the K_x x K_y samples it takes per pixel."""
-    tl, tr, bl, nw, nh = geometry
-    g = rotated_geometry(width, height, tl, tr, bl, nw, nh)
-    per_px = (g.k_x * g.k_y * (OPS_ROTATE_SAMPLE + 2 * channels) + g.k_y * OPS_ROTATE_ROW
-              + OPS_ROTATE_PIXEL + channels)
-    return tdk.roofline(channels * height * width * 4, channels * nh * nw * 4, nh * nw * per_px)
-
-
 def phase3c(device, bayer, card) -> dict:
-    """The rotate kernel and its plain version timed at the 24 MP shapes,
-    and the edit requests of phase 2c to host pixels."""
+    """The rotate kernel timed at the 24 MP shapes (the timing script's
+    method), its plain version one call from idle, and the edit requests of
+    phase 2c to host pixels."""
     width, height = bayer
+    kt = tdk.rotate_times(device)
     src = _rotate_source(device, (4, height, width), 7)
     times = {}
-    for label, rotation, crop in ROTATE_CASES:
-        geometry = _rotatecrop_geometry(rotation, crop, width, height)
-        tl, tr, bl, nw, nh = geometry
-        kernel = tdk.device_ms([lambda: krot.rotate_resample_planar(
-            src, width, height, tl, tr, bl, nw, nh, 4)], device)
-        ms = kernel["ms"]
+    for (label, t), (_, rotation, crop) in zip(kt.items(), ROTATE_CASES):
+        tl, tr, bl, nw, nh = tdk.rotatecrop_geometry(rotation, crop, width, height)
         pms = _plain_ms(lambda: krot.rotate_resample_plain(src, width, height, tl, tr, bl, nw, nh, 4),
                         device)
-        bound = rotate_bound(4, height, width, geometry)
-        print(f"  rotate kernel, [4, {height}, {width}] {label} -> {nw}x{nh}: {ms:.4f} ms device, "
-              f"launches back to back (runs {kernel['runs']}"
-              f"{', HOST-BOUND' if kernel['host_bound'] else ''}); plain {pms:.4f} ms one call "
-              f"from idle; bound {bound[0]:.4f} ms by {bound[1]} (on {card})")
+        _show(label, t, card)
+        print(f"    plain {pms:.4f} ms one call from idle")
         if not times:
-            times.update(_timing("rotate", ms, pms, bound))
+            times.update(_timing("rotate", t["ms"], pms, (t["bound_ms"], t["bound_by"])))
     del src
     torch.cuda.empty_cache()
 

@@ -1,5 +1,5 @@
 // Rotated (affine) resample for Hopper (sm_90a): the resampler behind
-// rotatecrop, one thread per output pixel computing all C channels.
+// rotatecrop, computing all C channels of an output pixel in one thread.
 //
 // Replaces the TPU kernel imagepipe_tpu/kernels/rotate_pallas.py::
 // _rotate_kernel (:288), launched by _rotate_jit (:527 -> pallas_call :552)
@@ -20,45 +20,103 @@
 //
 // sat() maps NaN to 0 and clips to [0, max], as Rust's saturating
 // `floor() as usize` then min(). The row and column tables (6 x nh and
-// 6 x nw floats, a few KB) are the host's float32 values with two
-// roundings (scaling.rotated_geometry); the device does one add of a row
-// and a column term before each floor. K_x, K_y are _transform_impl's
-// static bounds, so degenerate geometry (an output extent of 1, a zero
-// step, infinite or NaN skips) gives the JAX package's answer; an empty or
-// inverted window has no valid sample and gives 0. Every operation is an
-// explicit round-to-nearest intrinsic (__fadd_rn, __fsub_rn, __fmul_rn,
-// __fdiv_rn): nvcc contracts nothing, and the result equals the plain
-// PyTorch version (kernels/rotate.py) bit for bit.
-//
-// Not carried over from the Pallas kernel: the one-hot bf16 hi/mid/lo MXU
-// selection (a TPU gather workaround), the 8/128-aligned DMA windows and
-// their double buffer, the D_g/D_y bucketing for jit reuse, the
-// lane-replicated row table, the TC = 64/128 cost model, the whole-tile
-// empty early-out and rotate_plan's tightened K with its gather fallback.
-// Here each thread reads its window straight from the source in device
-// memory, and the kernel takes every non-CFA geometry.
+// 6 x nw floats) are the host's float32 values with two roundings
+// (scaling.rotated_geometry); the device does one add of a row and a column
+// term before each floor. K_x, K_y are _transform_impl's static bounds.
+// Every operation is an explicit round-to-nearest intrinsic (__fadd_rn,
+// __fsub_rn, __fmul_rn, __fdiv_rn) in the order above: nvcc contracts
+// nothing, and both routes equal the plain PyTorch version
+// (kernels/rotate.py) bit for bit.
 //
 // What bounds it: bytes. At 24 MP (6000 x 4000, C = 4) rotated 0.05 and
 // cropped 0.05 it reads a 384 MB source once and writes a 427 MB output:
-// ~0.24 ms at 3.35 TB/s, against ~6 GFLOP (16 samples of ~14 operations
-// per pixel), ~0.09 ms at 67 TFLOP/s. Neighbouring threads read source
-// addresses along the rotated row, so loads coalesce less well as the
-// angle grows; staging the source window in shared memory is later work.
+// 0.24 ms at 3.35 TB/s. The least work is about 3.7 valid samples of 11
+// operations per pixel there, 0.02 ms at 67 TFLOP/s.
+//
+// Two routes, chosen on the host (kernels/rotate.py::rotate_tile_plan):
+//
+// * staged (rotate_kernel_staged): a tile is 32 x tile_h output pixels,
+//   walked by a block of 32 x 8 threads (a column per lane, every 8th row
+//   per warp). Blocks are persistent: one per free slot of the card, each
+//   taking tiles blockIdx.x, + gridDim.x, ... in order, with two shared
+//   memory buffers, so the copies of the next tile are in flight while the
+//   block walks the current one. Per tile:
+//   (a) The source box comes from the plan's band tables, the min and max
+//       of rows[0..3] over the tile's band of rows and of cols[0..3] over
+//       its band of columns, with the same single __fadd_rn and sat_idx as
+//       the per-pixel indices. RN addition, floor and saturation are
+//       monotone, so these are the exact min and max of from and to over
+//       the tile's pixels (rotate_pallas.py:152-154 makes the same
+//       argument). The box is [min from, min(max from + K - 1, H - 1 or
+//       W - 1)] per axis: every sample the full walk reads, clamped ones
+//       included.
+//   (b) If max to < min from on either axis, every window of the tile is
+//       empty: every weight is the select's +0, the count stays +0 and the
+//       output is 0 whatever the source holds. The tile writes zeros and
+//       stages nothing. (The `to` bands are built on c + 1, as the tables
+//       are; rotate_pallas.py:353-358 records the bug that came from c.)
+//   (c) The box's C planes, the tile's row terms and its column terms are
+//       copied to shared memory with cp.async: 16 bytes a copy where the
+//       source rows allow it (W % 4 == 0, a 16-byte aligned source; the
+//       box then starts at a multiple of 4 columns), else 4. Each thread
+//       checks the values it copied, and __syncthreads_or makes a
+//       block-uniform flag: every staged source value is finite.
+//   (d) With the flag, each pixel walks only ky < min(K_y, to_y - from_y +
+//       1) and kx < min(K_x, to_x - from_x + 1), in the full walk's order;
+//       every such sample is valid and inside the source, so this path
+//       drops the validity select and the clamps. Without the flag, the
+//       full K_y x K_x walk with both. Both read the box in shared memory.
+//   (e) dy^2 is computed once per window row. Computing 1 - dx^2 once per
+//       window column as well (kept per thread in shared memory) was
+//       measured and lost at two of the three 24 MP geometries (PERF.md),
+//       so dx is computed per sample, as the plain version does.
+//   Why the tight walk is bit-equal to the full walk: a skipped sample lies
+//   outside [from, to], so its weight is exactly +0 (the select); with a
+//   finite source value its product is +0 or -0. Every sum and the count
+//   start at +0, and in round-to-nearest x + y is -0 only when both are -0,
+//   so a sum is never -0 and adding +-0 leaves it bit-unchanged. Every
+//   sample inside the window is walked, weights of 0 or NaN included, in
+//   the same order. Hence on finite boxes the tight walk equals the full
+//   walk bit for bit; any other box takes the full walk through the flag.
+// * direct (rotate_kernel_direct): one thread per output pixel reads its
+//   full K_y x K_x window straight from device memory. The plan sends
+//   here a geometry whose tables hold a non-finite value (an output 1
+//   wide or high: inf * 0 gives NaN, and the min/max argument does not
+//   hold) or whose staged block, two buffers of its largest box, would
+//   exceed a block's shared memory (a deep rotated downscale).
+//
+// Not carried over from the Pallas kernel: the one-hot bf16 hi/mid/lo MXU
+// selection (a TPU gather workaround), the 8/128-aligned DMA windows, the
+// D_g/D_y bucketing for jit reuse, the lane-replicated row table and the
+// TC = 64/128 cost model.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+constexpr int kTileW = 32;      // output columns per staged tile: one warp
+constexpr int kWarps = 8;       // warps per block: rows of a tile pass
+constexpr int kThreads = kTileW * kWarps;
+constexpr int kMaxSmem = 232448;
+constexpr float kFltMax = 3.402823466e+38f;   // NaN and +-Inf fail |v| <= kFltMax
+
 struct RotateArgs {
-  const float* src;     // [C, H, W]
-  int height, width;    // source size
-  const float* rows;    // [6, nh] row terms
-  const float* cols;    // [6, nw] column terms
-  int nh, nw;           // output size
-  float sxx, syy;       // skips dividing dx and dy
-  int k_x, k_y;         // window bounds
-  float* out;           // [C, nh, nw]
+  const float* src;       // [C, H, W]
+  int height, width;      // source size
+  const float* rows;      // [6, nh] row terms
+  const float* cols;      // [6, nw] column terms
+  int nh, nw;             // output size
+  float sxx, syy;         // skips dividing dx and dy
+  int k_x, k_y;           // window bounds
+  // The staged route:
+  const float* row_bands; // [8, nrb]: min of rows[0..3], then max, per band
+  const float* col_bands; // [8, ncb]: the same over cols[0..3]
+  int nrb, ncb;           // tile rows and columns
+  int tile_h;             // output rows per tile (a multiple of 8)
+  int box_floats;         // one box buffer: C planes of the largest box
+  bool vec4;              // 16-byte copies: W % 4 == 0, src 16-byte aligned
+  float* out;             // [C, nh, nw]
 };
 
 __device__ __forceinline__ int sat_idx(float v, int maxv) {
@@ -67,8 +125,41 @@ __device__ __forceinline__ int sat_idx(float v, int maxv) {
   return f >= static_cast<float>(maxv) ? maxv : static_cast<int>(f);
 }
 
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one group of this thread's copies is in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 template <int C>
-__global__ void __launch_bounds__(256) rotate_kernel(const RotateArgs a) {
+__device__ __forceinline__ void store_pixel(const RotateArgs& a, int row, int col,
+                                            const float* sums, float count) {
+  float* const out = a.out + static_cast<long long>(row) * a.nw + col;
+  const long long out_plane = static_cast<long long>(a.nh) * a.nw;
+  if (count > 0.0f) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) out[ch * out_plane] = __fdiv_rn(sums[ch], count);
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) out[ch * out_plane] = 0.0f;
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(256) rotate_kernel_direct(const RotateArgs a) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (col >= a.nw || row >= a.nh) return;
@@ -111,20 +202,237 @@ __global__ void __launch_bounds__(256) rotate_kernel(const RotateArgs a) {
       count = __fadd_rn(count, w);
     }
   }
+  store_pixel<C>(a, row, col, sums, count);
+}
 
-  const long long o = static_cast<long long>(row) * nw + col;
-  const long long out_plane = static_cast<long long>(nh) * nw;
+// A staged tile: its first output row and column and its source box (origin
+// y0, xa; bh rows of bw floats, bw a multiple of 4 with 16-byte copies,
+// whose origin xa is then the least from_x rounded down to a multiple of 4).
+struct Tile {
+  int row0, col0;
+  int y0, xa, bh, bw;
+  bool empty;
+};
+
+// (a), (b): tile t's box from the band tables, and whether every window of
+// the tile is empty.
+__device__ __forceinline__ Tile tile_at(const RotateArgs& a, int t) {
+  const int tr = t / a.ncb, tc = t - tr * a.ncb;
+  const int nrb = a.nrb, ncb = a.ncb;
+  const float* __restrict__ rb = a.row_bands;
+  const float* __restrict__ cb = a.col_bands;
+  const int hmax = a.height - 1, wmax = a.width - 1;
+  const int y0 = sat_idx(__fadd_rn(rb[0 * nrb + tr], cb[0 * ncb + tc]), hmax);
+  const int fy_hi = sat_idx(__fadd_rn(rb[4 * nrb + tr], cb[4 * ncb + tc]), hmax);
+  const int ty_hi = sat_idx(__fadd_rn(rb[5 * nrb + tr], cb[5 * ncb + tc]), hmax);
+  const int x0 = sat_idx(__fadd_rn(rb[2 * nrb + tr], cb[2 * ncb + tc]), wmax);
+  const int fx_hi = sat_idx(__fadd_rn(rb[6 * nrb + tr], cb[6 * ncb + tc]), wmax);
+  const int tx_hi = sat_idx(__fadd_rn(rb[7 * nrb + tr], cb[7 * ncb + tc]), wmax);
+  Tile b;
+  b.row0 = tr * a.tile_h;
+  b.col0 = tc * kTileW;
+  b.empty = ty_hi < y0 || tx_hi < x0;
+  const int y1 = min(fy_hi + a.k_y - 1, hmax), x1 = min(fx_hi + a.k_x - 1, wmax);
+  b.y0 = y0;
+  b.bh = y1 - y0 + 1;
+  b.xa = a.vec4 ? (x0 & ~3) : x0;
+  b.bw = a.vec4 ? ((x1 + 4 - b.xa) & ~3) : x1 + 1 - x0;
+  return b;
+}
+
+// The copies of one tile, split over the block: a warp takes rpw box rows
+// at a time (as many as fit its lanes), a lane one unit of 4 floats (1
+// without vec4) of a row. `fn(smem, gmem)` is called for each unit.
+template <int C, typename Fn>
+__device__ __forceinline__ void for_units(const RotateArgs& a, const Tile& b, float* box,
+                                          Fn fn) {
+  const int unit = a.vec4 ? 4 : 1;
+  const int nu = b.bw / unit;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int rpw = nu <= kTileW ? kTileW / nu : 1;
+  const int lr = nu <= kTileW ? lane / nu : 0;
+  const int lu = lane - lr * (nu <= kTileW ? nu : 0);
+  if (lr >= rpw) return;
+  const int ustep = nu <= kTileW ? nu : kTileW;
+  const long long plane = static_cast<long long>(a.height) * a.width;
 #pragma unroll
   for (int ch = 0; ch < C; ++ch) {
-    a.out[ch * out_plane + o] = count > 0.0f ? __fdiv_rn(sums[ch], count) : 0.0f;
+    const float* g = a.src + ch * plane + static_cast<long long>(b.y0) * a.width + b.xa;
+    float* s = box + ch * b.bh * b.bw;
+    for (int yy = warp * rpw + lr; yy < b.bh; yy += kWarps * rpw) {
+      for (int u = lu; u < nu; u += ustep) {
+        fn(s + yy * b.bw + u * unit, g + static_cast<long long>(yy) * a.width + u * unit);
+      }
+    }
+  }
+}
+
+// (c) Start the copies of tile b into one buffer: its row terms [6,
+// tile_h], column terms [6, 32] and box [C, bh, bw].
+template <int C>
+__device__ __forceinline__ void stage(const RotateArgs& a, const Tile& b, float* rows_s,
+                                      float* cols_s, float* box) {
+  const int tid = threadIdx.y * kTileW + threadIdx.x;
+  const int rows_here = min(a.tile_h, a.nh - b.row0), cols_here = min(kTileW, a.nw - b.col0);
+  for (int i = tid; i < 6 * a.tile_h; i += kThreads) {
+    const int q = i / a.tile_h, r = i - q * a.tile_h;
+    if (r < rows_here) cp_async4(rows_s + i, a.rows + q * a.nh + b.row0 + r);
+  }
+  if (tid < 6 * kTileW) {
+    const int q = tid / kTileW, c = tid - q * kTileW;
+    if (c < cols_here) cp_async4(cols_s + tid, a.cols + q * a.nw + b.col0 + c);
+  }
+  if (a.vec4) {
+    for_units<C>(a, b, box, [](float* s, const float* g) { cp_async16(s, g); });
+  } else {
+    for_units<C>(a, b, box, [](float* s, const float* g) { cp_async4(s, g); });
+  }
+}
+
+// (d), (e): one pixel's walk from the staged box. kTight: only the valid
+// window (every sample of it has y <= to_y and x <= to_x, inside the
+// source); else the full K_y x K_x walk with the validity select and the
+// clamps of the plain version. dy^2 once per window row; dx per sample.
+template <int C, bool kTight>
+__device__ __forceinline__ void walk_pixel(const RotateArgs& a, const Tile& b, const float* box,
+                                           const float* rterm, int rstride, const float* cterm,
+                                           int row, int col) {
+  const int hmax = a.height - 1, wmax = a.width - 1;
+  const int fy = sat_idx(__fadd_rn(rterm[0 * rstride], cterm[0]), hmax);
+  const int ty = sat_idx(__fadd_rn(rterm[1 * rstride], cterm[1]), hmax);
+  const int fx = sat_idx(__fadd_rn(rterm[2 * rstride], cterm[2]), wmax);
+  const int tx = sat_idx(__fadd_rn(rterm[3 * rstride], cterm[3]), wmax);
+  const float cy = __fadd_rn(rterm[4 * rstride], cterm[4]);
+  const float cx = __fadd_rn(rterm[5 * rstride], cterm[5]);
+  const int ny = kTight ? min(a.k_y, ty - fy + 1) : a.k_y;
+  const int nx = kTight ? min(a.k_x, tx - fx + 1) : a.k_x;
+
+  const int box_plane = b.bh * b.bw;
+  float sums[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) sums[ch] = 0.0f;
+  float count = 0.0f;
+  for (int ky = 0; ky < ny; ++ky) {
+    const int y = fy + ky;
+    const float dy = __fdiv_rn(__fsub_rn(static_cast<float>(y), cy), a.syy);
+    const float dy2 = __fmul_rn(dy, dy);
+    const int srow = ((kTight ? y : min(y, hmax)) - b.y0) * b.bw - b.xa;
+    for (int kx = 0; kx < nx; ++kx) {
+      const int x = fx + kx;
+      const float dx = __fdiv_rn(__fsub_rn(static_cast<float>(x), cx), a.sxx);
+      float w = __fsub_rn(__fsub_rn(1.0f, __fmul_rn(dx, dx)), dy2);
+      w = w < 0.0f ? 0.0f : w;
+      if (!kTight) w = (y <= ty && x <= tx) ? w : 0.0f;
+      const float* s = box + srow + (kTight ? x : min(x, wmax));
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        sums[ch] = __fadd_rn(sums[ch], __fmul_rn(s[ch * box_plane], w));
+      }
+      count = __fadd_rn(count, w);
+    }
+  }
+  store_pixel<C>(a, row, col, sums, count);
+}
+
+// Persistent blocks, each taking tiles blockIdx.x, + gridDim.x, ... in
+// order, two buffers: the copies of the next tile are in flight while the
+// block walks the current one.
+template <int C>
+__global__ void __launch_bounds__(256) rotate_kernel_staged(const RotateArgs a) {
+  // Shared memory: per buffer the tile's row terms [6, tile_h] and column
+  // terms [6, 32]; then per buffer a box [C, bh, bw] of at most box_floats.
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  float* const terms = smem;
+  const int terms_floats = 6 * a.tile_h + 6 * kTileW;
+  float* const boxes = terms + 2 * terms_floats;
+  const int ntiles = a.nrb * a.ncb;
+
+  int t = blockIdx.x;
+  Tile cur = tile_at(a, t);
+  if (!cur.empty) stage<C>(a, cur, terms, terms + 6 * a.tile_h, boxes);
+  cp_async_commit();
+  for (int buf = 0; t < ntiles; t += gridDim.x, buf ^= 1) {
+    Tile next = cur;
+    const int tn = t + gridDim.x;
+    if (tn < ntiles) {
+      next = tile_at(a, tn);
+      float* nterms = terms + (buf ^ 1) * terms_floats;
+      if (!next.empty) stage<C>(a, next, nterms, nterms + 6 * a.tile_h,
+                                boxes + (buf ^ 1) * a.box_floats);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+
+    // (c) This thread's copies of the current box are in; the flag makes
+    // them everyone's.
+    float* const box = boxes + buf * a.box_floats;
+    int bad = 0;
+    if (!cur.empty) {
+      if (static_cast<long long>(C) * cur.bh * cur.bw > a.box_floats) __trap();
+      if (a.vec4) {
+        for_units<C>(a, cur, box, [&bad](float* s, const float*) {
+          const float4 v = *reinterpret_cast<const float4*>(s);
+          bad |= !(fabsf(v.x) <= kFltMax && fabsf(v.y) <= kFltMax && fabsf(v.z) <= kFltMax &&
+                   fabsf(v.w) <= kFltMax);
+        });
+      } else {
+        for_units<C>(a, cur, box, [&bad](float* s, const float*) {
+          bad |= !(fabsf(*s) <= kFltMax);
+        });
+      }
+    }
+    const bool finite = !__syncthreads_or(bad);
+
+    const int col = cur.col0 + lane;
+    const int rows_here = min(a.tile_h, a.nh - cur.row0);
+    if (col < a.nw) {
+      const float* rterm = terms + buf * terms_floats;
+      const float* cterm_s = rterm + 6 * a.tile_h + lane;
+      float cterm[6];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) cterm[q] = cterm_s[q * kTileW];
+      for (int r = warp; r < rows_here; r += kWarps) {
+        if (cur.empty) {
+          const float zeros[C] = {};
+          store_pixel<C>(a, cur.row0 + r, col, zeros, 0.0f);
+        } else if (finite) {
+          walk_pixel<C, true>(a, cur, box, rterm + r, a.tile_h, cterm, cur.row0 + r, col);
+        } else {
+          walk_pixel<C, false>(a, cur, box, rterm + r, a.tile_h, cterm, cur.row0 + r, col);
+        }
+      }
+    }
+    __syncthreads();                 // the buffer is read: free to refill
+    cur = next;
   }
 }
 
 template <int C>
-cudaError_t launch(const RotateArgs& a, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((a.nw + block.x - 1) / block.x, (a.nh + block.y - 1) / block.y);
-  rotate_kernel<C><<<grid, block, 0, stream>>>(a);
+cudaError_t launch(const RotateArgs& a, bool staged, cudaStream_t stream) {
+  if (!staged) {
+    const dim3 block(32, 8);
+    const dim3 grid((a.nw + block.x - 1) / block.x, (a.nh + block.y - 1) / block.y);
+    rotate_kernel_direct<C><<<grid, block, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
+  const int smem = static_cast<int>(sizeof(float)) *
+                   (2 * (6 * a.tile_h + 6 * kTileW) + 2 * a.box_floats);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(rotate_kernel_staged<C>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  int device = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+    return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rotate_kernel_staged<C>,
+                                                    kThreads, smem);
+  if (e != cudaSuccess) return e;
+  const int ntiles = a.nrb * a.ncb;
+  const int blocks = min(ntiles, sms * max(per_sm, 1));
+  rotate_kernel_staged<C><<<blocks, dim3(kTileW, kWarps), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -133,11 +441,16 @@ cudaError_t launch(const RotateArgs& a, cudaStream_t stream) {
 // C entry point for ctypes: resample src [components, height, width] f32
 // into out [components, nh, nw] f32 with the row tables rows [6, nh] and
 // column tables cols [6, nw] (scaling.rotated_geometry), skips sxx, syy and
-// window bounds k_x, k_y. Returns the cudaError_t of the launch (0 =
-// success).
+// window bounds k_x, k_y. staged = 0 takes the direct route; staged = 1 the
+// staged route with tiles of 32 x tile_h output pixels, the band tables
+// row_bands [8, ceil(nh / tile_h)] and col_bands [8, ceil(nw / 32)], box
+// buffers of box_floats floats, and 16-byte copies if vec4 (width a
+// multiple of 4 and src 16-byte aligned) (kernels/rotate.py::
+// rotate_tile_plan). Returns the cudaError_t of the launch (0 = success).
 extern "C" int rotate_resample_launch(
     const float* src, int components, int height, int width, const float* rows,
-    const float* cols, int nh, int nw, float sxx, float syy, int k_x, int k_y,
+    const float* cols, int nh, int nw, float sxx, float syy, int k_x, int k_y, int staged,
+    const float* row_bands, const float* col_bands, int tile_h, int box_floats, int vec4,
     float* out, void* stream) {
   RotateArgs a;
   a.src = src;
@@ -151,21 +464,35 @@ extern "C" int rotate_resample_launch(
   a.syy = syy;
   a.k_x = k_x;
   a.k_y = k_y;
+  a.row_bands = row_bands;
+  a.col_bands = col_bands;
+  a.tile_h = tile_h;
+  a.nrb = tile_h > 0 ? (nh + tile_h - 1) / tile_h : 0;
+  a.ncb = (nw + kTileW - 1) / kTileW;
+  a.box_floats = box_floats;
+  a.vec4 = vec4 != 0;
   a.out = out;
   if (nh <= 0 || nw <= 0 || height <= 0 || width <= 0 || k_x <= 0 || k_y <= 0 ||
       (nh + 7) / 8 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (staged && (row_bands == nullptr || col_bands == nullptr || tile_h <= 0 ||
+                 tile_h % kWarps != 0 || box_floats <= 0 ||
+                 box_floats % 4 != 0 ||
+                 (a.vec4 && (width % 4 != 0 || reinterpret_cast<size_t>(src) % 16 != 0)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool st = staged != 0;
   switch (components) {
-    case 1: return static_cast<int>(launch<1>(a, s));
-    case 2: return static_cast<int>(launch<2>(a, s));
-    case 3: return static_cast<int>(launch<3>(a, s));
-    case 4: return static_cast<int>(launch<4>(a, s));
-    case 5: return static_cast<int>(launch<5>(a, s));
-    case 6: return static_cast<int>(launch<6>(a, s));
-    case 7: return static_cast<int>(launch<7>(a, s));
-    case 8: return static_cast<int>(launch<8>(a, s));
+    case 1: return static_cast<int>(launch<1>(a, st, s));
+    case 2: return static_cast<int>(launch<2>(a, st, s));
+    case 3: return static_cast<int>(launch<3>(a, st, s));
+    case 4: return static_cast<int>(launch<4>(a, st, s));
+    case 5: return static_cast<int>(launch<5>(a, st, s));
+    case 6: return static_cast<int>(launch<6>(a, st, s));
+    case 7: return static_cast<int>(launch<7>(a, st, s));
+    case 8: return static_cast<int>(launch<8>(a, st, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

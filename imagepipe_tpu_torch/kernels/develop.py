@@ -174,7 +174,8 @@ def _library():
         lib.division_check_count.restype = i
         f = ctypes.c_float
         lib.rotate_resample_launch.restype = i
-        lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, p, p]
+        lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, i, p, p, i,
+                                               i, i, p, p]
         _lib = lib
     return _lib
 

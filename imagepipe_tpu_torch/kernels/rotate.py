@@ -12,33 +12,48 @@ launch of csrc/rotate.cu, which replaces the Pallas `_rotate_kernel`.
   (scaling._transform_rotated, the JAX package's `_transform_impl` as an
   eager windowed gather). A source on a CUDA device launches the kernel, or
   the wrapper raises; nothing falls back.
-* The kernel takes every geometry, C <= 8: there is no `rotate_plan` that
-  can refuse one. Its geometry is `scaling.rotated_geometry`: 6 row terms
-  per output row and 6 column terms per output column (a few KB), copied
-  to the card pinned and without blocking, plus the skips and the window
-  bounds K_x, K_y of `_transform_impl`.
-* `LAUNCHES` counts the kernel's launches. The library is built and bound
-  by kernels/develop.py, with the develop kernels.
+* The kernel takes every geometry, C <= 8. Its geometry is
+  `scaling.rotated_geometry`: 6 row terms per output row and 6 column terms
+  per output column, plus the skips and the window bounds K_x, K_y of
+  `_transform_impl`. `rotate_tile_plan` picks one of the kernel's two
+  routes: *staged* (a block stages its tile's source box in shared memory
+  and walks only each pixel's valid window), with the band tables that
+  bound each tile's box, or *direct* (a thread per pixel reads its whole
+  window from device memory) for a geometry whose tables hold a non-finite
+  value or whose staged block would exceed `STAGE_SMEM_BYTES` (a deep
+  rotated downscale). All tables go to the card in one pinned, non-blocking
+  copy.
+* `LAUNCHES` counts the kernel's launches, `DIRECT_LAUNCHES` those on the
+  direct route. The library is built and bound by kernels/develop.py, with
+  the develop kernels.
 
 Numerics: every operation of the kernel is an explicit round-to-nearest
 intrinsic in the plain version's order, so the two agree bit for bit
 (chip_smoke.py holds them within MAX_ABS_DIFF and to the same NaN and zero
-pattern).
+pattern). The staged route's shorter walk adds only the +-0 products the
+full walk adds outside each window, which leave a sum unchanged; csrc/
+rotate.cu's header gives the argument.
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
-from ..scaling import _transform_rotated, rotated_geometry
+from ..scaling import RotatedGeometry, _transform_rotated, rotated_geometry, sat_floor_np
 from . import develop as kdev
 
-__all__ = ["rotate_resample_planar", "rotate_resample_plain", "check_source",
-           "LAUNCHES", "MAX_COMPONENTS", "MAX_ABS_DIFF"]
+__all__ = ["rotate_resample_planar", "rotate_resample_plain", "rotate_tile_plan",
+           "tile_boxes", "RotateTilePlan", "check_source", "LAUNCHES", "DIRECT_LAUNCHES",
+           "MAX_COMPONENTS", "MAX_ABS_DIFF", "TILE_W", "TILE_H", "STAGE_SMEM_BYTES"]
 
 # Kernel launches by `rotate_resample_planar` since import (or since a caller
-# reset it to 0).
+# reset it to 0), and those of them on the direct route.
 LAUNCHES = 0
+DIRECT_LAUNCHES = 0
 
 # Largest channel count the kernel takes (the Pallas kernel's limit).
 MAX_COMPONENTS = 8
@@ -46,6 +61,109 @@ MAX_COMPONENTS = 8
 # Largest |kernel - plain version| accepted on the card (the JAX package's
 # own Pallas-vs-gather tolerance, tests/test_rotate_pallas.py); 0 expected.
 MAX_ABS_DIFF = 2e-6
+
+# The staged route's output tile: TILE_W columns (one warp) by TILE_H rows
+# (a multiple of the block's 8 warps).
+TILE_W = 32
+TILE_H = 32
+# Most shared memory a staged block may use: all a Hopper block can have.
+STAGE_SMEM_BYTES = kdev.MAX_SMEM
+
+
+@dataclass(frozen=True)
+class RotateTilePlan:
+    """The kernel's route and, on the staged route, its tiles.
+
+    row_bands [8, nrb] float32: per band of `tile_h` output rows, the min
+    of rows[0..3] of rotated_geometry, then their max; col_bands [8, ncb]
+    the same over cols[0..3] per band of TILE_W output columns (None where
+    a table holds a non-finite value). box_bound (height, width): a bound
+    on every tile's box; box_floats: one box buffer, its C planes with 6
+    columns more (the 16-byte copies widen a box to multiples of 4 floats
+    from a multiple of 4), rounded up to 4 floats. smem_bytes: a staged
+    block's shared memory, two buffers, each of a tile's row and column
+    terms (6 x (tile_h + TILE_W)) and a box."""
+    route: str                       # "staged" or "direct"
+    reason: str
+    tile_h: int
+    row_bands: np.ndarray | None
+    col_bands: np.ndarray | None
+    box_bound: tuple[int, int]
+    box_floats: int
+    smem_bytes: int
+
+
+def _bands(terms: np.ndarray, size: int) -> np.ndarray:
+    """[8, nb] float32: min then max of each of the 4 rows of `terms` [4, n]
+    over consecutive bands of `size` entries (the last band may be short)."""
+    starts = np.arange(0, terms.shape[1], size)
+    return np.concatenate([np.minimum.reduceat(terms, starts, axis=1),
+                           np.maximum.reduceat(terms, starts, axis=1)]).astype(np.float32)
+
+
+def _extent_bound(row_bands, col_bands, i, k, size) -> int:
+    """A bound on a tile's box extent along the axis of term `i` (0: y,
+    2: x): greatest from - least from <= ceil(span + eps), span the largest
+    spread of the row term over a row band plus that of the column term
+    over a column band, eps both float32 roundings of the kernel's adds
+    (the floors add < 1, saturation only shrinks it), plus the window's K."""
+    r = row_bands[[i, i + 4]].astype(np.float64)
+    c = col_bands[[i, i + 4]].astype(np.float64)
+    span = float((r[1] - r[0]).max() + (c[1] - c[0]).max())
+    eps = (float(np.abs(r).max()) + float(np.abs(c).max())) * 2.0 ** -23
+    return min(size, math.ceil(span + eps) + k)
+
+
+def rotate_tile_plan(g: RotatedGeometry, components: int, height: int, width: int,
+                     tile_h: int | None = None) -> RotateTilePlan:
+    """The route of csrc/rotate.cu for geometry `g` on a [components, height,
+    width] source, and the staged route's band tables and shared memory
+    (see RotateTilePlan). The tile is the tallest of `tile_h` (TILE_H by
+    default), its half, ... down to 8 rows whose block fits
+    STAGE_SMEM_BYTES. Its cost is linear in the output's height and width."""
+    tile_h = TILE_H if tile_h is None else int(tile_h)
+    if tile_h <= 0 or tile_h % 8:
+        raise ValueError(f"rotate tile plan: tile height {tile_h}, want a multiple of 8")
+    if not (np.isfinite(g.rows).all() and np.isfinite(g.cols).all()):
+        return RotateTilePlan("direct", "a geometry table holds a non-finite value", tile_h,
+                              None, None, (0, 0), 0, 0)
+    col_bands = _bands(g.cols[:4], TILE_W)
+    while True:
+        row_bands = _bands(g.rows[:4], tile_h)
+        box = (_extent_bound(row_bands, col_bands, 0, g.k_y, height),
+               _extent_bound(row_bands, col_bands, 2, g.k_x, width))
+        box_floats = -(-components * box[0] * (box[1] + 6) // 4) * 4
+        smem = 4 * 2 * (6 * (tile_h + TILE_W) + box_floats)
+        if smem <= STAGE_SMEM_BYTES or tile_h % 16:
+            break
+        tile_h //= 2
+    if smem > STAGE_SMEM_BYTES:
+        route, reason = "direct", f"staged block needs {smem} B, over {STAGE_SMEM_BYTES}"
+    else:
+        route, reason = "staged", "finite tables, every box fits"
+    return RotateTilePlan(route, reason, tile_h, row_bands, col_bands, box, box_floats, smem)
+
+
+def tile_boxes(plan: RotateTilePlan, g: RotatedGeometry, height: int,
+               width: int) -> tuple[np.ndarray, np.ndarray]:
+    """(boxes [4, nrb, ncb] int64: y0, y1, x0, x1 of each tile's source box,
+    inclusive; empty [nrb, ncb] bool): what the kernel derives from the band
+    tables, one float32 add of a row and a column band term, floor and
+    saturation each. A box runs from the least `from` to min(greatest
+    `from` + K - 1, H - 1 or W - 1); a tile is empty where the greatest
+    `to` is below the least `from` on an axis."""
+    rb, cb = plan.row_bands, plan.col_bands
+
+    def idx(i, maxv):
+        with np.errstate(over="ignore"):
+            s = rb[i][:, None] + cb[i][None, :]
+        return sat_floor_np(s, maxv)
+
+    y0, fy_hi, ty_hi = idx(0, height - 1), idx(4, height - 1), idx(5, height - 1)
+    x0, fx_hi, tx_hi = idx(2, width - 1), idx(6, width - 1), idx(7, width - 1)
+    boxes = np.stack([y0, np.minimum(fy_hi + g.k_y - 1, height - 1),
+                      x0, np.minimum(fx_hi + g.k_x - 1, width - 1)])
+    return boxes, (ty_hi < y0) | (tx_hi < x0)
 
 
 def check_source(src: torch.Tensor, width: int, height: int, nwidth: int,
@@ -84,17 +202,26 @@ def rotate_resample_planar(src: torch.Tensor, width, height, topleft, topright,
     if src.device.type != "cuda":
         raise ValueError(f"rotate kernel: unsupported device {src.device}")
     g = rotated_geometry(width, height, topleft, topright, bottomleft, nwidth, nheight)
-    rows, cols = kdev.upload(g.rows, src.device), kdev.upload(g.cols, src.device)
+    plan = rotate_tile_plan(g, components, height, width)
+    staged = plan.route == "staged"
+    parts = [g.rows.ravel(), g.cols.ravel()]
+    if staged:
+        parts += [plan.row_bands.ravel(), plan.col_bands.ravel()]
+    tables = kdev.upload(np.concatenate(parts), src.device)
+    offsets = np.cumsum([0] + [p.size for p in parts]) * 4 + tables.data_ptr()
     out = torch.empty((components, nheight, nwidth), dtype=torch.float32, device=src.device)
     lib = kdev._library()
     stream = torch.cuda.current_stream(src.device).cuda_stream
+    vec4 = width % 4 == 0 and src.data_ptr() % 16 == 0
     with torch.cuda.device(src.device):
         rc = lib.rotate_resample_launch(
-            src.data_ptr(), components, height, width, rows.data_ptr(), cols.data_ptr(),
-            nheight, nwidth, float(g.sxx), float(g.syy), g.k_x, g.k_y, out.data_ptr(),
-            stream)
+            src.data_ptr(), components, height, width, int(offsets[0]), int(offsets[1]),
+            nheight, nwidth, float(g.sxx), float(g.syy), g.k_x, g.k_y, int(staged),
+            int(offsets[2]) if staged else None, int(offsets[3]) if staged else None,
+            plan.tile_h, plan.box_floats if staged else 0, int(vec4), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"rotate kernel launch failed: cudaError {rc}")
-    global LAUNCHES
+    global LAUNCHES, DIRECT_LAUNCHES
     LAUNCHES += 1
+    DIRECT_LAUNCHES += not staged
     return out

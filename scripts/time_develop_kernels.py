@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's two develop kernels like for like, and show what they cost
-in registers and instructions.
+"""Time the port's kernels like for like, and show what they cost in
+registers and instructions.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 scripts/time_develop_kernels.py [--label NAME]
+    python3 scripts/time_develop_kernels.py [--label NAME] [--kernels develop,rotate]
+                                            [--rotate-tile-h 8,16,32]
 
 It times whichever `imagepipe_tpu_torch` is first on the import path, so two
 versions of the kernels can be compared in one run on one card: unpack the
@@ -12,8 +13,11 @@ other version's `imagepipe_tpu_torch/` into a directory that .gitignore
 lists and run this script with `PYTHONPATH=<that directory>`, in turns with
 the tree's own (`PYTHONPATH=.`). The script uses only the kernels' public
 wrappers (`develop`, `develop_batch`, `develop_scaled`,
-`develop_scaled_batch`) and `kernels.develop.build`, which every version of
-the port has.
+`develop_scaled_batch`, `rotate_resample_planar`) and
+`kernels.develop.build`, which every version of the port has since the
+rotate kernel landed. `--kernels rotate` times the rotate kernel alone;
+`--rotate-tile-h` times it again at each listed tile height of its staged
+route (`kernels.rotate.TILE_H`, where the version has one).
 
 What it measures, on the card it names (`nvidia-smi` name and power limit):
 
@@ -22,14 +26,16 @@ What it measures, on the card it names (`nvidia-smi` name and power limit):
   calls rotating over three distinct inputs so that each 24 MP plane
   (48 MB, about the L2 cache's 50 MB) is read cold, as a request reads it;
   median of `REPEATS` such runs. If the host took longer to enqueue the
-  launches than the sleep lasted, the figure is flagged `host_bound`;
+  launches than the sleep lasted, the figure is flagged `host_bound`. The
+  rotate kernel resamples one [4, 4000, 6000] float32 source (384 MB, past
+  the L2 cache) at the three rotatecrop geometries of `ROTATE_CASES`;
 * from idle: one call timed with CUDA events from an idle device, so the
   wrapper's host path before its launch counts too (median of `REPEATS`);
   the difference from the device ms is the wrapper's host overhead;
 * the bound: the larger of the bytes the function must move (the cropped
   plane read once, the output written once) over 3.35 TB/s and its least
-  float32 work (`OPS_*`, levels counted once per source sample) over
-  67 TFLOP/s;
+  float32 work (`OPS_*`, levels counted once per source sample; the rotate
+  kernel's from the valid windows of the geometry) over 67 TFLOP/s;
 * registers, spills and shared memory per kernel (`nvcc -Xptxas -v` on the
   package's csrc/), and static SASS instructions per kernel
   (`cuobjdump -sass` of the built library).
@@ -93,6 +99,23 @@ OPS_DEMOSAIC_BAYER = 6
 # sample); per output pixel the four averages.
 OPS_WINDOW_SAMPLE = 5
 OPS_SCALED_PIXEL = 4
+# The rotated resample over the samples of each pixel's valid window (the
+# staged route's walk): per window column dx (subtract, divide), dx^2 and
+# 1 - dx^2; per window row dy (subtract, divide) and dy^2; per sample the
+# weight (subtract dy^2, clip at 0), a product and a sum per channel and the
+# count sum; per output pixel 6 adds of row and column terms and one
+# division per channel.
+OPS_ROTATE_COLUMN = 4
+OPS_ROTATE_ROW = 3
+OPS_ROTATE_SAMPLE = 3           # plus 2 per channel
+OPS_ROTATE_PIXEL = 6            # plus 1 per channel
+
+# The rotate kernel's source: the staged edit path's 24 MP demosaic stage,
+# planar [4, H, W] f32, and rotatecrop's (label, rotation, crop_left).
+ROTATE_SOURCE = (4, 4000, 6000)
+ROTATE_CASES = (("rotation 0.05, crop_left 0.05", 0.05, 0.05),
+                ("rotation 0.1, crop_left 0.05", 0.1, 0.05),
+                ("rotation 0.5 (45 degrees)", 0.5, 0.0))
 
 
 # Opcodes counted in each kernel's SASS: special-function unit calls
@@ -133,6 +156,51 @@ def scaled_bound(plan, plane) -> tuple[float, str]:
     return roofline(src_px * plane.element_size(), 3 * out_px * plan.out_bits // 8,
                   src_px * OPS_LEVELS + samples * OPS_WINDOW_SAMPLE
                   + out_px * (OPS_SCALED_PIXEL + OPS_FINISH))
+
+
+def rotatecrop_geometry(rotation, crop_left, width, height):
+    """(topleft, topright, bottomleft, nwidth, nheight) of rotatecrop at
+    these settings on a width x height demosaic stage."""
+    from imagepipe_tpu_torch.ops.rotatecrop import OpRotateCrop
+
+    op = OpRotateCrop()
+    op.rotation, op.crop_left = rotation, crop_left
+    return op.geometry(width, height)
+
+
+def rotate_windows(height, width, geometry, device) -> tuple[int, int, int]:
+    """(window columns, window rows, samples) summed over the output's
+    pixels: min(K, to - from + 1) per axis, 0 for an empty window."""
+    from imagepipe_tpu_torch.scaling import rotated_geometry
+
+    tl, tr, bl, nw, nh = geometry
+    g = rotated_geometry(width, height, tl, tr, bl, nw, nh)
+    rows, cols = torch.from_numpy(g.rows).to(device), torch.from_numpy(g.cols).to(device)
+    cols_total = rows_total = samples = 0
+    for r0 in range(0, nh, 512):                 # bands of rows bound the memory
+        def idx(i, maxv):
+            v = torch.nan_to_num(rows[i, r0:r0 + 512, None] + cols[i, None, :], nan=0.0)
+            return torch.clamp(torch.floor(v), 0, maxv).to(torch.int64)
+
+        ny = torch.clamp(torch.clamp(idx(1, height - 1) - idx(0, height - 1) + 1, max=g.k_y),
+                         min=0)
+        nx = torch.clamp(torch.clamp(idx(3, width - 1) - idx(2, width - 1) + 1, max=g.k_x),
+                         min=0)
+        cols_total += int(nx.sum())
+        rows_total += int(ny.sum())
+        samples += int((nx * ny).sum())
+    return cols_total, rows_total, samples
+
+
+def rotate_bound(channels, height, width, geometry, device) -> tuple[float, str]:
+    """The rotate kernel's bound: the source read once, the output written
+    once, and the operations of the samples of each pixel's valid window."""
+    nw, nh = geometry[3], geometry[4]
+    wcols, wrows, samples = rotate_windows(height, width, geometry, device)
+    ops = (wcols * OPS_ROTATE_COLUMN + wrows * OPS_ROTATE_ROW
+           + samples * (OPS_ROTATE_SAMPLE + 2 * channels)
+           + nh * nw * (OPS_ROTATE_PIXEL + channels))
+    return roofline(channels * height * width * 4, channels * nh * nw * 4, ops)
 
 
 def device_ms(fns, device, launches=LAUNCHES, repeats=REPEATS) -> dict:
@@ -247,6 +315,37 @@ def kernel_times(device) -> dict:
     return out
 
 
+def rotate_times(device, tile_hs=()) -> dict:
+    """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by}} for
+    the rotate kernel at the ROTATE_CASES geometries of one 24 MP source,
+    then again at each staged tile height of `tile_hs` ("... tile_h N")."""
+    from imagepipe_tpu_torch.kernels import rotate as krot
+
+    c, height, width = ROTATE_SOURCE
+    gen = torch.Generator(device=device).manual_seed(7)
+    src = torch.rand(ROTATE_SOURCE, generator=gen, device=device, dtype=torch.float32)
+    default = getattr(krot, "TILE_H", None)
+    out = {}
+    for tile_h in (None, *tile_hs):
+        if tile_h is not None:
+            if default is None:
+                break                            # a version without a staged route
+            krot.TILE_H = tile_h
+        for label, rotation, crop in ROTATE_CASES:
+            geometry = rotatecrop_geometry(rotation, crop, width, height)
+            tl, tr, bl, nw, nh = geometry
+            fn = lambda: krot.rotate_resample_planar(src, width, height, tl, tr, bl, nw, nh, c)
+            name = f"rotate [{c}, {height}, {width}] {label} -> {nw}x{nh}"
+            if tile_h is not None:
+                name += f" tile_h {tile_h}"
+            out[name] = _entry([fn], fn, rotate_bound(c, height, width, geometry, device), device)
+    if default is not None:
+        krot.TILE_H = default
+    del src
+    torch.cuda.empty_cache()
+    return out
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -258,12 +357,13 @@ def _nvcc() -> str:
 
 def ptxas_report(csrc: Path, build_dir: Path) -> dict:
     """{kernel: 'N registers, ... bytes spill ..., M bytes smem'} from
-    `nvcc -Xptxas -v` on each develop source, compiled with the package's
-    own flags (one nvcc each, in parallel)."""
+    `nvcc -Xptxas -v` on each kernel source (the develop kernels' and
+    rotate.cu), compiled with the package's own flags (one nvcc each, in
+    parallel)."""
     flags = [f for f in kdev._NVCC_FLAGS]
     build_dir.mkdir(exist_ok=True)
     procs = []
-    for name in ("develop.cu", "develop_scaled.cu"):
+    for name in ("develop.cu", "develop_scaled.cu", "rotate.cu"):
         obj = build_dir / f"ptxas_{name}.{os.getpid()}.o"
         procs.append((obj, subprocess.Popen([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
                                              str(csrc / name)],
@@ -291,8 +391,8 @@ def _demangle(name: str) -> str:
 
 def sass_counts(lib: Path) -> dict:
     """{kernel: {"instructions": static SASS instruction count, and the
-    count of each opcode in SASS_OPCODES}} of the develop kernels in the
-    built library (`cuobjdump -sass`); NOPs are not counted."""
+    count of each opcode in SASS_OPCODES}} of the develop and rotate
+    kernels in the built library (`cuobjdump -sass`); NOPs are not counted."""
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -311,14 +411,20 @@ def sass_counts(lib: Path) -> dict:
             for name in SASS_OPCODES:
                 if op == name or op.startswith(name + "."):
                     c[name] += 1
-    return {k: v for k, v in counts.items() if "develop_kernel" in k or "scaled_kernel" in k}
+    return {k: v for k, v in counts.items()
+            if any(n in k for n in ("develop_kernel", "scaled_kernel", "rotate_kernel"))}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="tree")
     ap.add_argument("--json", help="also write the result line to this file")
+    ap.add_argument("--kernels", default="develop,rotate",
+                    help="comma-separated: develop (the develop and scaled kernels), rotate")
+    ap.add_argument("--rotate-tile-h", default="",
+                    help="comma-separated staged tile heights to time the rotate kernel at too")
     args = ap.parse_args()
+    kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("time_develop_kernels: no CUDA device", file=sys.stderr)
         return 1
@@ -337,7 +443,10 @@ def main() -> int:
         print(f"  ptxas {k}: {'; '.join(v)}")
     for k, v in result["sass_instructions"].items():
         print(f"  sass {k}: {v}")
-    result["times"] = kernel_times(device)
+    result["times"] = kernel_times(device) if "develop" in kernels else {}
+    if "rotate" in kernels:
+        tile_hs = [int(v) for v in args.rotate_tile_h.split(",") if v]
+        result["times"].update(rotate_times(device, tile_hs))
     for k, v in result["times"].items():
         print(f"  {k}: {v['ms']:.4f} ms device (runs {v['runs']}{', HOST-BOUND' if v['host_bound'] else ''}), "
               f"{v['from_idle_ms']:.4f} ms from idle; bound {v['bound_ms']:.4f} ms by {v['bound_by']} "
