@@ -5,8 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each ending in torch.cuda.synchronize():
   0. setup: the card's name and power limit; build the CUDA kernels from
-     csrc/ (develop.cu, develop_scaled.cu and rotate.cu, one nvcc each, in
-     parallel);
+     csrc/ (develop.cu, develop_scaled.cu, rotate.cu, suffix.cu and the
+     division proof, one nvcc each, in parallel);
   1. each kernel against its plain PyTorch version on the card, at full
      size, and the proof that the kernels' reciprocal-multiply division
      (finish.cuh div_rcp) equals the IEEE one for every input they give it. The develop kernel: 24 MP Bayer 8-bit and 16-bit linear, 26 MP
@@ -70,18 +70,32 @@ Phases, each ending in torch.cuda.synchronize():
      develop_sp_batch at B=4 of 24 MP Bayer. Each must be bit-equal to the
      unsharded develop / develop_batch, hold the contract against its plain
      version, and make one launch per shard;
+  1e. the suffix kernel (the fused dirty suffix) against its plain version,
+     bit for bit (floats to the bit where not NaN, NaN at the same places;
+     quantized outputs equal): on the 6000x4000 frame and the first
+     render's 5981x4458 rotated frame, a segment from each start
+     (rotatecrop/to_lab, basecurve, from_lab, gamma) to the 8-bit and the
+     16-bit linear output, at Normal, Rotate90 and Transverse, with every
+     stage output kept and with only the last; a monochrome frame from
+     to_lab. The inputs: a [4, H, W] plane over [-0.1, 1.2) and the plain
+     stages' outputs on it (values below 0 and above 1), each with 3000
+     each of NaN, +Inf and -Inf planted. One launch per segment;
   2c. the staged edit path at full width: a 24 MP Bayer DNG through
      RenderService(device="cuda").open_file, then edits: rotation 0.05 +
      crop_left 0.05 (the first render), exposure +0.3, rotation 0.1, and
      rotation 0 (crop only). Each edit must launch the rotate kernel 1, 0,
-     1, 0 times and no develop kernel, and leave 8, 12, 20, 26 cache
-     entries (the reference's hash chain). The first render must agree with the same edit with the
+     1, 0 times, the suffix kernel once (its dirty tail after rotatecrop
+     is one fused segment) and no develop kernel, and leave 8, 12, 20, 26
+     cache entries (the reference's hash chain). The same edits with
+     pipeline.FUSE_SUFFIX = False (each op's run in turn, no suffix
+     launch) must give the same pixels bit for bit and the same entries.
+     The first render must agree with the same edit with the
      rotate step replaced by its plain version (on the cached demosaic
      stage, finished by the ops' run), and a staged render of the unedited
      frame with the fused develop kernel (<= 1 LSB, < 2%). Prints per-stage
-     host ms (each stage synchronized), the device's idle share under
-     torch.profiler, and the cache's total_bytes beside the device memory
-     it holds;
+     host ms (each stage or fused segment synchronized), the device's idle
+     share under torch.profiler, and the cache's total_bytes beside the
+     device memory it holds;
   3. the kernels timed like for like (scripts/time_develop_kernels.py):
      device ms per launch over 24 launches back to back behind a device
      sleep, rotating over 3 distinct inputs so each 24 MP plane is read
@@ -89,10 +103,13 @@ Phases, each ending in torch.cuda.synchronize():
      host path): the develop kernel at 24 MP Bayer 8-bit and 16-bit and
      26 MP X-Trans, the scaled kernel at 24 MP to 2048, 1024, 160 and 1024
      at 16-bit, both batched at B=8; the rotate kernel the same way at the
-     three 24 MP geometries of phase 1c; plain versions one call from idle,
-     median of 5; the host wall time and breakdown of a cached 1024-px
-     request; the edit requests of phase 2c (first render, exposure edit,
-     rotation edit) to host pixels;
+     three 24 MP geometries of phase 1c; the suffix kernel the same way
+     from each segment start on the two frames of phase 1e (8-bit, every
+     stage kept), beside the device ms of the eager stages it replaces on
+     the same inputs; plain versions one call from idle, median of 5; the
+     host wall time and breakdown of a cached 1024-px request; the edit
+     requests of phase 2c (first render, exposure edit, rotation edit) to
+     host pixels, per-stage (FUSE_SUFFIX = False) and fused in turns;
   3b. the batch path timed: develop_files throughput of the 16 Bayer files
      (source MP/s, full size and to 1024), its host split (decode, plan,
      staging, dispatch, wait, scatter) and, under torch.profiler, its
@@ -140,6 +157,8 @@ from imagepipe_tpu_torch.hasher import BufHasher
 from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
 from imagepipe_tpu_torch.kernels import rotate as krot
+from imagepipe_tpu_torch.kernels import suffix as ksuf
+from imagepipe_tpu_torch import pipeline as ppl
 from imagepipe_tpu_torch.parallel import BatchEngine, BatchError
 from imagepipe_tpu_torch.service import RenderService
 from imagepipe_tpu_torch.sources import ImageSource, image_content_hash
@@ -175,17 +194,23 @@ ROTATE_CASES = tdk.ROTATE_CASES
 # +Inf and -Inf, this many at seeded positions (about half the staged tiles'
 # boxes then hold one and take the full walk).
 ROTATE_NONFINITE = 3000
-# (label, patch, rotate launches, cache entries after it). The entries
-# follow the reference's hash chain: the settings, demosaic size included,
-# come first, and size planning asks a 6000x4000 frame rotated 0.05 for a
-# 5999x3999 demosaic stage, 6000x4000 at 0.1 and at 0: those two edits
-# recompute every stage (8 + 4 + 8 + 6).
+# (label, patch, rotate launches, suffix launches, cache entries after it).
+# The entries follow the reference's hash chain: the settings, demosaic size
+# included, come first, and size planning asks a 6000x4000 frame rotated
+# 0.05 for a 5999x3999 demosaic stage, 6000x4000 at 0.1 and at 0: those two
+# edits recompute every stage (8 + 4 + 8 + 6). Each edit's dirty tail after
+# rotatecrop is one fused segment: one suffix launch.
 EDITS = (("rotation 0.05 + crop_left 0.05 (first render)",
-          {"rotatecrop": {"rotation": 0.05, "crop_left": 0.05}}, 1, 8),
-         ("exposure +0.3", {"basecurve": {"exposure": 0.3}}, 0, 12),
-         ("rotation 0.1", {"rotatecrop": {"rotation": 0.1}}, 1, 20),
-         ("rotation 0 (crop only)", {"rotatecrop": {"rotation": 0.0}}, 0, 26))
+          {"rotatecrop": {"rotation": 0.05, "crop_left": 0.05}}, 1, 1, 8),
+         ("exposure +0.3", {"basecurve": {"exposure": 0.3}}, 0, 1, 12),
+         ("rotation 0.1", {"rotatecrop": {"rotation": 0.1}}, 1, 1, 20),
+         ("rotation 0 (crop only)", {"rotatecrop": {"rotation": 0.0}}, 0, 1, 26))
 EDIT_CACHE_BYTES = 16 << 30
+# Phase 1e: the suffix kernel's frames (the staged edit path's 24 MP frame
+# and the first render's rotated one), orientations and output bits.
+SUFFIX_SHAPES = tdk.SUFFIX_SHAPES
+SUFFIX_ORIENTATIONS = ("Normal", "Rotate90", "Transverse")
+EDIT_RUNS = 3                         # fresh services per turn of phase 3c's edit requests
 
 
 def _card() -> str:
@@ -218,12 +243,13 @@ def _reset_counts():
     kdev.LAUNCHES = kdev.BATCH_LAUNCHES = kdev.SP_LAUNCHES = 0
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
     krot.LAUNCHES = krot.DIRECT_LAUNCHES = 0
+    ksuf.LAUNCHES = 0
 
 
 def _counts() -> dict:
     return {"develop": kdev.LAUNCHES, "develop_scaled": kds.LAUNCHES,
             "develop_batch": kdev.BATCH_LAUNCHES, "develop_scaled_batch": kds.BATCH_LAUNCHES,
-            "rotate": krot.LAUNCHES, "develop_sp": kdev.SP_LAUNCHES}
+            "rotate": krot.LAUNCHES, "develop_sp": kdev.SP_LAUNCHES, "suffix": ksuf.LAUNCHES}
 
 
 def _upload(raw, device):
@@ -775,7 +801,7 @@ def _device_split(prof, wall_ms):
         name = e.name
         kind = ("H2D" if "HtoD" in name else "D2H" if "DtoH" in name
                 else "kernel" if any(k in name for k in ("develop_kernel", "scaled_kernel",
-                                                           "rotate_kernel"))
+                                                           "rotate_kernel", "suffix_kernel"))
                 else "other")
         spans[kind] += (end - start) / 1e3
     if not intervals:
@@ -1032,6 +1058,91 @@ def phase1c(device, bayer) -> float:
     return worst
 
 
+def _suffix_inputs(device, shape, seed) -> list:
+    """The inputs of phase 1e's segments on a width x height frame, one per
+    segment start (tdk.SUFFIX_STARTS): a seeded [4, H, W] float32 plane over
+    [-0.1, 1.2), then the plain stages' outputs on it (Lab, the curved Lab,
+    linear RGB with values below 0 and above 1), each with ROTATE_NONFINITE
+    each of NaN, +Inf and -Inf planted."""
+    width, height = shape
+    base = _rotate_source(device, (4, height, width), seed) * 1.3 - 0.1
+    seg = [(s, p) for s, p in tdk.suffix_segment(device) if s is not None]
+    inter = ksuf.suffix_plain(base, [s for s, _ in seg], [p for _, p in seg])[0]
+    ins = [base] + inter[:len(tdk.SUFFIX_STARTS) - 1]
+    return [_plant_nonfinite(x.clone(), seed + 1 + k) for k, x in enumerate(ins)]
+
+
+def _same_bits(got, want) -> tuple[bool, float]:
+    """(bit-equal, max |diff|): floats equal bit for bit where neither is
+    NaN and NaN at the same places; integers equal."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    if not got.is_floating_point():
+        return torch.equal(got, want), float((got.int() - want.int()).abs().max())
+    nan = got.isnan()
+    g, w = got.masked_fill(nan, 0.0), want.masked_fill(want.isnan(), 0.0)
+    same = torch.equal(nan, want.isnan()) and torch.equal(g.view(torch.int32),
+                                                          w.contiguous().view(torch.int32))
+    diff = (g - w).abs().nan_to_num(0.0, posinf=0.0)
+    return same, float(diff.max())
+
+
+def phase1e(device, shapes) -> float:
+    """The suffix kernel against its plain version, bit for bit: on each
+    frame of `shapes`, every segment start (rotatecrop/to_lab, basecurve,
+    from_lab, gamma) to the 8-bit and the 16-bit linear output, Normal,
+    Rotate90 and Transverse, every stage output kept and only the last;
+    and a monochrome frame from to_lab. Inputs carry NaN, +-Inf, negative
+    values and values above 1. Returns the largest |diff| (0 expected)."""
+    worst = 0.0
+    for shape in shapes:
+        ins = _suffix_inputs(device, shape, 31)
+        nan_in = [int(x.isnan().sum()) for x in ins]
+        cases = [(o, bits, False) for o in SUFFIX_ORIENTATIONS for bits in (8, 16)]
+        cases += [("Normal", bits, True) for bits in (8, 16)]
+        for orientation, bits, mono in cases:
+            seg = tdk.suffix_segment(device, bits, orientation, mono)
+            checked = []
+            for k, start in enumerate(tdk.SUFFIX_STARTS):
+                if mono and k:
+                    break
+                real = [(s, p) for s, p in seg[k:] if s is not None]
+                if not real:          # 16-bit Normal from gamma: nothing to launch
+                    continue
+                stages, params = [s for s, _ in real], [p for _, p in real]
+                for keep_all in (True, False):
+                    keep = [keep_all or i == len(stages) - 1 for i in range(len(stages))]
+                    before = ksuf.LAUNCHES
+                    got = ksuf.run_suffix(ins[k], stages, params, bits, keep)
+                    if device.type == "cuda" and ksuf.LAUNCHES != before + 1:
+                        raise AssertionError("the suffix kernel did not launch once")
+                    want = ksuf.suffix_plain(ins[k], stages, params, bits, keep)
+                    _sync(device)
+                    for name, g, w in zip(stages + ["quantize"], got[0] + [got[1]],
+                                          want[0] + [want[1]]):
+                        if (g is None) != (w is None):
+                            raise AssertionError(f"{start}: output {name} kept by one side only")
+                        if g is None:
+                            continue
+                        same, maxd = _same_bits(g, w)
+                        worst = max(worst, maxd)
+                        if not same:
+                            raise AssertionError(
+                                f"suffix {shape} {orientation} {bits}-bit mono={mono} from "
+                                f"{start}, keep {keep}: {name} differs from the plain version "
+                                f"(max |diff| {maxd})")
+                    del got, want
+                checked.append(start)
+            print(f"  {shape[0]}x{shape[1]} {orientation}{' monochrome' if mono else ''} "
+                  f"{bits}-bit{' linear' if bits == 16 else ''}: from {', '.join(checked)}, "
+                  f"every stage kept and the last only: bit-equal to the plain version "
+                  f"(inputs' NaN {nan_in})")
+        del ins
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return worst
+
+
 def _stage_key(pipe, nstages) -> bytes:
     """The chain hash of stage `nstages` - 1 of `pipe`'s last staged run."""
     h = BufHasher()
@@ -1058,46 +1169,74 @@ def _first_render_vs_plain(pipe, cache, got) -> int:
                   planar_to_hwc(output8bit(buf.data)))
 
 
-def phase2c(device, bayer, card) -> int:
-    """The staged edit path through RenderService; returns the rotate
-    kernel's launches on it."""
+def _edits(device, path, fuse, first_render_check=False) -> tuple[list, dict]:
+    """EDITS through a fresh RenderService with pipeline.FUSE_SUFFIX =
+    `fuse`, each stage (segment) synchronized; checks each edit's launches
+    (rotate as EDITS says, suffix as EDITS says when fused, else none) and
+    cache entries. Returns (the host outputs, summed launches)."""
     import logging
-
-    from torch.profiler import ProfilerActivity, profile
 
     none = {k: 0 for k in _counts()}
     pkg_log = logging.getLogger("imagepipe_tpu_torch")
+    baseline = _allocated(device)
+    svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
+    pipe = svc.open_file("frame", path).pipeline
+    outs, total = [], dict(none)
+    old_level, old_fuse = pkg_log.level, ppl.FUSE_SUFFIX
+    pkg_log.setLevel(logging.DEBUG)      # each stage ends in a synchronize
+    ppl.FUSE_SUFFIX = fuse
+    try:
+        for i, (label, patch, want_rotate, want_suffix, want_len) in enumerate(EDITS):
+            _reset_counts()
+            t = time.perf_counter()
+            img = svc.edit("frame", patch)
+            ms = (time.perf_counter() - t) * 1e3
+            counts = _counts()
+            total = {k: total[k] + counts[k] for k in total}
+            held = _allocated(device) - baseline
+            print(f"  edit '{label}'{'' if fuse else ', FUSE_SUFFIX = False'}: {img.data.shape} "
+                  f"{img.data.dtype}, host wall {ms:.1f} ms; launches {counts}; cache "
+                  f"{len(svc.cache)} entries, total_bytes {svc.cache.total_bytes}, device "
+                  f"memory beyond the baseline {held} B")
+            print(f"    stage host ms (each stage synchronized): "
+                  f"{ {k: round(v, 3) for k, v in pipe.stage_ms.items()} }")
+            want = dict(none, rotate=want_rotate, suffix=want_suffix if fuse else 0)
+            if device.type == "cuda" and counts != want:
+                raise AssertionError(f"{label}: launches {counts}, want {want}")
+            if len(svc.cache) != want_len:
+                raise AssertionError(f"{label}: {len(svc.cache)} cache entries, want {want_len}")
+            if first_render_check and i == 0:
+                _first_render_vs_plain(pipe, svc.cache, img.data)
+            outs.append(img.data)
+    finally:
+        pkg_log.setLevel(old_level)
+        ppl.FUSE_SUFFIX = old_fuse
+    del svc, pipe
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return outs, total
+
+
+def phase2c(device, bayer, card) -> tuple[int, int]:
+    """The staged edit path through RenderService, fused, then again with
+    FUSE_SUFFIX = False, which must give the same pixels bit for bit;
+    returns the rotate and suffix kernels' launches on the fused run."""
+    from torch.profiler import ProfilerActivity, profile
+
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "edit.dng")
         dng.write_dng(path, traw.synthetic_bayer(*bayer, seed=6))
-        baseline = _allocated(device)
+        fused, launches = _edits(device, path, True, first_render_check=True)
+        staged, _ = _edits(device, path, False)
+        for (label, *_), f, s in zip(EDITS, fused, staged):
+            if f.shape != s.shape or f.dtype != s.dtype or not np.array_equal(f, s):
+                raise AssertionError(f"edit '{label}': fused and per-stage outputs differ")
+        print(f"  FUSE_SUFFIX = False: every edit's output bit-equal to the fused run's")
+        del staged
         svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
-        pipe = svc.open_file("frame", path).pipeline
-        launches = 0
-        old_level = pkg_log.level
-        pkg_log.setLevel(logging.DEBUG)      # each stage ends in a synchronize
-        try:
-            for i, (label, patch, want_rotate, want_len) in enumerate(EDITS):
-                _reset_counts()
-                t = time.perf_counter()
-                img = svc.edit("frame", patch)
-                ms = (time.perf_counter() - t) * 1e3
-                counts = _counts()
-                launches += counts["rotate"]
-                held = _allocated(device) - baseline
-                print(f"  edit '{label}': {img.data.shape} {img.data.dtype}, host wall {ms:.1f} ms; "
-                      f"launches {counts}; cache {len(svc.cache)} entries, total_bytes "
-                      f"{svc.cache.total_bytes}, device memory beyond the baseline {held} B")
-                print(f"    stage host ms (each stage synchronized): "
-                      f"{ {k: round(v, 3) for k, v in pipe.stage_ms.items()} }")
-                if device.type == "cuda" and counts != dict(none, rotate=want_rotate):
-                    raise AssertionError(f"{label}: launches {counts}, want rotate {want_rotate}")
-                if len(svc.cache) != want_len:
-                    raise AssertionError(f"{label}: {len(svc.cache)} cache entries, want {want_len}")
-                if i == 0:
-                    _first_render_vs_plain(pipe, svc.cache, img.data)
-        finally:
-            pkg_log.setLevel(old_level)
+        svc.open_file("frame", path)
+        for _, patch, *_ in EDITS:
+            svc.edit("frame", patch)
 
         # One more edit under the profiler, stages not synchronized.
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1113,7 +1252,7 @@ def phase2c(device, bayer, card) -> int:
             print(f"  edit 'rotation 0.07' under torch.profiler ({pwall:.1f} ms wall): device ms "
                   f"{ {k: round(v, 3) for k, v in sorted(spans.items())} }, busy {busy:.3f} ms, "
                   f"idle share {1 - busy / pwall:.4f} (on {card})")
-        del svc, pipe
+        del svc
         if device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -1126,13 +1265,15 @@ def phase2c(device, bayer, card) -> int:
         if device.type == "cuda" and kdev.LAUNCHES != before + 1:
             raise AssertionError("the fused render did not launch the develop kernel once")
         _check("unedited frame, staged vs fused develop kernel", staged, fused)
-    return launches
+    return launches["rotate"], launches["suffix"]
 
 
 def phase3c(device, bayer, card) -> dict:
-    """The rotate kernel timed at the 24 MP shapes (the timing script's
-    method), its plain version one call from idle, and the edit requests of
-    phase 2c to host pixels."""
+    """The rotate and suffix kernels timed at the 24 MP shapes (the timing
+    script's method) with their plain versions one call from idle, the
+    eager stages the suffix kernel replaces (device ms back to back), and
+    the edit requests of phase 2c to host pixels, per-stage and fused in
+    turns."""
     width, height = bayer
     kt = tdk.rotate_times(device)
     src = _rotate_source(device, (4, height, width), 7)
@@ -1148,23 +1289,50 @@ def phase3c(device, bayer, card) -> dict:
     del src
     torch.cuda.empty_cache()
 
+    st = tdk.suffix_times(device)
+    for label, t in st.items():
+        _show(label, t, card)
+        print(f"    eager stages it replaces, same inputs: {t['eager_ms']:.4f} ms device "
+              f"(runs {t['eager_runs']}), {t['eager_ms'] / t['ms']:.2f}x the kernel")
+    # The main path's segment: the first render's, from the no-op
+    # rotatecrop on the rotated 5981x4458 frame.
+    width, height = SUFFIX_SHAPES[1]
+    main = [label for label in st if f"{width}x{height} from to_lab" in label][0]
+    seg = [(s, p) for s, p in tdk.suffix_segment(device) if s is not None]
+    x = _rotate_source(device, (4, height, width), 8)
+    pms = _plain_ms(lambda: ksuf.suffix_plain(x, [s for s, _ in seg], [p for _, p in seg], 8),
+                    device)
+    print(f"  {main}: plain version {pms:.4f} ms one call from idle")
+    times.update(_timing("suffix", st[main]["ms"], pms,
+                         (st[main]["bound_ms"], st[main]["bound_by"])))
+    del x
+    torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "edit.dng")
         dng.write_dng(path, traw.synthetic_bayer(*bayer, seed=6))
         source = decode_file(path)
-    walls = {label: [] for label, _, _, _ in EDITS[:3]}
-    for _ in range(5):
-        svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
-        svc.open_source("frame", source)
-        for label, patch, _, _ in EDITS[:3]:
-            t = time.perf_counter()
-            svc.edit("frame", patch)
-            walls[label].append((time.perf_counter() - t) * 1e3)
-        del svc
-        torch.cuda.empty_cache()
-    for label, runs in walls.items():
-        print(f"  edit request '{label}' to host pixels: median {statistics.median(runs):.3f} ms "
-              f"of 5 fresh services, runs {[round(x, 3) for x in runs]} (the first run uploads "
+    # Per-stage (the parent's loop, FUSE_SUFFIX = False) and fused in turns.
+    walls = {(fuse, label): [] for fuse in (False, True) for label, *_ in EDITS[:3]}
+    old_fuse = ppl.FUSE_SUFFIX
+    try:
+        for fuse in (False, True, True, False):
+            ppl.FUSE_SUFFIX = fuse
+            for _ in range(EDIT_RUNS):
+                svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
+                svc.open_source("frame", source)
+                for label, patch, *_ in EDITS[:3]:
+                    t = time.perf_counter()
+                    svc.edit("frame", patch)
+                    walls[fuse, label].append((time.perf_counter() - t) * 1e3)
+                del svc
+                torch.cuda.empty_cache()
+    finally:
+        ppl.FUSE_SUFFIX = old_fuse
+    for (fuse, label), runs in walls.items():
+        print(f"  edit request '{label}' to host pixels, {'fused' if fuse else 'per-stage'}: "
+              f"median {statistics.median(runs):.3f} ms of {len(runs)} fresh services in two "
+              f"turns, runs {[round(x, 3) for x in runs]} (the first edit of a service uploads "
               f"the plane and hashes the frame) (on {card})")
     return times
 
@@ -1195,6 +1363,8 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "imagepipe_tpu/kernels/rotate_pallas.py:288"),
     ("develop_sp", "imagepipe_tpu_torch/csrc/develop.cu",
      "imagepipe_tpu/kernels/develop_pallas.py:680,701"),
+    ("suffix", "imagepipe_tpu_torch/csrc/suffix.cu",
+     "imagepipe_tpu/pipeline.py:329 (_dispatch_fused, an XLA jit; no Pallas)"),
 )
 
 
@@ -1228,10 +1398,12 @@ def main() -> int:
     print("phase 1d: the width-sharded develop's shard launches vs the unsharded kernel "
           "and the plain version")
     errors["develop_sp"] = phase1d(device, SP_CASES, bayer_bases)
+    print("phase 1e: the suffix kernel vs its plain version, bit for bit")
+    errors["suffix"] = phase1e(device, SUFFIX_SHAPES)
     print("phase 2: main paths")
     launches, scaled_launches = phase2(device, BAYER)
     print("phase 2c: the staged edit path, RenderService")
-    rotate_launches = phase2c(device, BAYER, card)
+    rotate_launches, suffix_launches = phase2c(device, BAYER, card)
     with tempfile.TemporaryDirectory() as td:
         paths, corrupt = _batch_files(td, bayer_bases, xtrans_bases)
         print("phase 2b: the batch path, BatchEngine.develop_files")
@@ -1240,7 +1412,7 @@ def main() -> int:
         sp_launches = phase2d(device, paths, corrupt, flat)
         del flat
         counts = dict(develop=launches, develop_scaled=scaled_launches, rotate=rotate_launches,
-                      develop_sp=sp_launches, **batch_counts)
+                      develop_sp=sp_launches, suffix=suffix_launches, **batch_counts)
         print("phase 3: timing")
         times = phase3(device, BAYER, card)
         times.update(phase3c(device, BAYER, card))

@@ -4,7 +4,9 @@ Counterpart of `imagepipe_tpu/buffer.py` (OpBuffer, buffer.rs:4-114). A
 buffer is channel-planar float32 [colors, height, width] on the pipeline's
 device, plus its width, height, colour count and monochrome flag. Ops are
 functions from buffer to buffer; a buffer is not mutated after it is made,
-so a stage cache can hold it and hand it out again.
+so a stage cache can hold it and hand it out again. The constructors put a
+buffer on `device`, by default the pipeline's `default_device()` (the
+first CUDA device); the CPU only when asked for (`device="cpu"`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,15 @@ import numpy as np
 import torch
 
 __all__ = ["OpBuffer", "from_rgb_str_vec"]
+
+
+def _device(device) -> torch.device:
+    """`device`, or the pipeline's default device when it is None."""
+    if device is None:
+        from .pipeline import default_device
+
+        return default_device()
+    return torch.device(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,15 +51,15 @@ class OpBuffer:
 
     @staticmethod
     def new(width: int, height: int, colors: int, monochrome: bool,
-            device="cpu") -> "OpBuffer":
+            device=None) -> "OpBuffer":
         return OpBuffer(width, height, colors, monochrome,
                         torch.zeros((colors, height, width), dtype=torch.float32,
-                                    device=device))
+                                    device=_device(device)))
 
     @staticmethod
-    def from_hwc(arr, monochrome: bool = False, device="cpu") -> "OpBuffer":
+    def from_hwc(arr, monochrome: bool = False, device=None) -> "OpBuffer":
         """A buffer from an interleaved [H, W, C] array or tensor."""
-        t = torch.as_tensor(arr, dtype=torch.float32, device=device)
+        t = torch.as_tensor(arr, dtype=torch.float32, device=_device(device))
         h, w, c = t.shape
         return OpBuffer(w, h, c, monochrome, t.permute(2, 0, 1).contiguous())
 
@@ -95,7 +106,7 @@ class OpBuffer:
         )
 
 
-def from_rgb_str_vec(rows: list[str], device="cpu") -> OpBuffer:
+def from_rgb_str_vec(rows: list[str], device=None) -> OpBuffer:
     """ASCII-art test fixture constructor (buffer.rs:82-113): 'R'/'G'/'B'/'O'
     (white) / ' ' (black) characters -> a 3-channel buffer."""
     width = len(rows[0])

@@ -155,7 +155,7 @@ def build() -> Path:
 
 def _library():
     """The kernels' library, built if needed, with every entry point bound
-    (the develop kernels' and kernels/rotate.py's)."""
+    (the develop kernels', kernels/rotate.py's and kernels/suffix.py's)."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -176,6 +176,8 @@ def _library():
         lib.rotate_resample_launch.restype = i
         lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, i, p, p, i,
                                                i, i, p, p]
+        lib.suffix_launch.restype = i
+        lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, p]
         _lib = lib
     return _lib
 

@@ -6,9 +6,8 @@ hash covers its name plus a canonical binary serialization of every field;
 the bytes are those of the JAX package, so content hashes and YAML serials
 agree across the two packages. `run(globals, buf)` is the op's stage of the
 staged pipeline: an OpBuffer in, an OpBuffer out, on the buffer's device.
-The JAX package's `device_chain` (a fused dirty suffix, to save TPU
-dispatch round trips) is not ported: the port runs the suffix stage by
-stage.
+`device_chain(globals, meta)` says whether and how the op joins a fused
+segment of the dirty suffix (pipeline._dispatch_fused, kernels/suffix.py).
 """
 
 from __future__ import annotations
@@ -52,6 +51,26 @@ class ImageOp:
         h = BufHasher()
         h.from_serialize(self)
         return h.result()
+
+    def device_chain(self, globals_, meta):
+        """How the op joins a fused segment of the dirty suffix.
+
+        `meta` is the descriptor `(width, height, colors, monochrome)` of
+        the buffer the op would receive. None: the op does not join (the
+        pipeline runs its `run`). Else `(key, stage, params, out_meta)`:
+
+        - `key`: every static that changes what the segment computes
+          (orientation flips, knot count, linear or not, monochrome): two
+          calls with equal settings (`shash`) and equal keys give equal
+          params, so a memo keyed on (shash, key) would be exact;
+        - `stage`: the name of the op's stage in kernels/suffix.py
+          (`suffix.STAGES`), or None for an identity (a no-op crop,
+          linear-mode gamma, ...), whose cache entry is its input;
+        - `params`: the stage's host values (kernels/suffix.py);
+        - `out_meta`: the descriptor of the op's output.
+
+        The fused segment is bit-equal to the ops' `run` in turn."""
+        return None
 
     def transform_forward(self, width: int, height: int) -> tuple[int, int]:
         return (width, height)

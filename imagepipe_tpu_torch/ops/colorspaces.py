@@ -3,7 +3,8 @@
 Counterpart of `imagepipe_tpu/ops/colorspaces.py` (colorspaces.rs): camera
 matrices, white-balance normalization and the interactive white balance
 over the Planckian locus (host float math); each stage's transform is one
-eager elementwise pass of color.py on the buffer's device.
+eager elementwise pass of color.py on the buffer's device, or a stage of a
+fused segment (`device_chain`, kernels/suffix.py).
 """
 
 from __future__ import annotations
@@ -105,13 +106,23 @@ class OpToLab(ImageOp):
                     xyz[i] += float(self.cam_to_xyz[i][j]) / mul
         return xyz_to_temp(xyz)
 
+    def _calibration(self, monochrome: bool):
+        """(WB multipliers, camera matrix): a monochrome buffer's camera is
+        D65 sRGB with unity WB (colorspaces.rs:90-101)."""
+        if monochrome:
+            return [1.0, 1.0, 1.0, 1.0], cc.SRGB_D65_43
+        return normalize_wbs(self.wb_coeffs), self.cam_to_xyz_normalized
+
+    def device_chain(self, globals_, meta):
+        w, h, colors, mono = meta
+        if colors != 4:
+            return None
+        mul, cmatrix = self._calibration(mono)
+        params = (np.asarray(mul, np.float32), np.asarray(cmatrix, np.float32))
+        return (("to_lab", mono), "to_lab", params, (w, h, 3, mono))
+
     def run(self, globals_, buf: OpBuffer) -> OpBuffer:
-        # Monochrome: the camera is D65 sRGB with unity WB
-        # (colorspaces.rs:90-101).
-        if buf.monochrome:
-            cmatrix, mul = cc.SRGB_D65_43, [1.0, 1.0, 1.0, 1.0]
-        else:
-            cmatrix, mul = self.cam_to_xyz_normalized, normalize_wbs(self.wb_coeffs)
+        mul, cmatrix = self._calibration(buf.monochrome)
         numerics = cc.resolve_numerics("auto", buf.data.device)
         lab = cc.camera_to_lab_planar(mul, cmatrix, [buf.data[c] for c in range(4)], numerics)
         return OpBuffer(buf.width, buf.height, 3, buf.monochrome, torch.stack(lab))
@@ -131,6 +142,11 @@ class OpFromLab(ImageOp):
 
     def load_settings_dict(self, d: dict) -> None:
         pass
+
+    def device_chain(self, globals_, meta):
+        if meta[2] != 3:
+            return None
+        return (("from_lab",), "from_lab", (cc.XYZ_D65_33,), meta)
 
     def run(self, globals_, buf: OpBuffer) -> OpBuffer:
         rgb = cc.lab_to_rgb_planar(cc.XYZ_D65_33, (buf.data[0], buf.data[1], buf.data[2]))

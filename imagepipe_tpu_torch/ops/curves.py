@@ -2,8 +2,9 @@
 
 Counterpart of `imagepipe_tpu/ops/curves.py` (curves.rs:5-56). Exposure
 scales each control point's y by 2^exposure before the spline is fitted
-on the host; the staged run evaluates it on the L plane, the fused develop
-takes its coefficients (engine.make_develop_plan).
+on the host; the staged run evaluates it on the L plane, a fused segment
+of the suffix (`device_chain`) and the fused develop
+(engine.make_develop_plan) take its coefficients.
 """
 
 from __future__ import annotations
@@ -47,11 +48,27 @@ class OpBaseCurve(ImageOp):
     def get_spline(self) -> SplineFunc:
         return SplineFunc(self.points)
 
-    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
-        if len(self.points) == 0 and abs(self.exposure) < 0.001:
-            return buf
+    def _identity(self) -> bool:
+        return len(self.points) == 0 and abs(self.exposure) < 0.001
+
+    def _final_spline(self) -> SplineFunc:
         scale = math.pow(2.0, self.exposure)
-        func = SplineFunc([(x, y * scale) for (x, y) in self.points])
+        return SplineFunc([(x, y * scale) for (x, y) in self.points])
+
+    def device_chain(self, globals_, meta):
+        if self._identity():
+            return (("basecurve", None), None, (), meta)
+        func = self._final_spline()
+        n = len(func.xs)
+        coeffs = np.zeros((5, n), np.float32)
+        coeffs[0], coeffs[1], coeffs[2] = func.xs, func.ys, func.c1s
+        coeffs[3, :n - 1], coeffs[4, :n - 1] = func.c2s, func.c3s
+        return (("basecurve", n), "basecurve", (coeffs,), meta)
+
+    def run(self, globals_, buf: OpBuffer) -> OpBuffer:
+        if self._identity():
+            return buf
+        func = self._final_spline()
         tables = [torch.tensor(np.asarray(a, np.float32), device=buf.data.device)
                   for a in (func.xs, func.ys, func.c1s, func.c2s, func.c3s)]
         L = eval_spline_arrays(*tables, len(func.xs), buf.data[0])

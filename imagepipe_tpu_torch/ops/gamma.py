@@ -31,6 +31,11 @@ class OpGamma(ImageOp):
     def load_settings_dict(self, d: dict) -> None:
         pass
 
+    def device_chain(self, globals_, meta):
+        if globals_.settings.linear:
+            return (("gamma", "linear"), None, (), meta)
+        return (("gamma",), "gamma", (), meta)
+
     def run(self, globals_, buf: OpBuffer) -> OpBuffer:
         if globals_.settings.linear:
             return buf

@@ -176,6 +176,13 @@ class OpRotateCrop(ImageOp):
             x, _f32(_f32(y) + fnheight - _f32(1.0)), fnwidth, fnheight, swidth, sheight)
         return topleft, topright, bottomleft, nwidth, nheight
 
+    def device_chain(self, globals_, meta):
+        # Only the no-op joins a fused segment: a crop or rotation runs its
+        # own resample (`run`).
+        if self._noop():
+            return (("rotatecrop", None), None, (), meta)
+        return None
+
     def run(self, globals_, buf: OpBuffer) -> OpBuffer:
         g = self.geometry(buf.width, buf.height)
         if g is None:

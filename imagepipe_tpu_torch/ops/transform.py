@@ -90,6 +90,17 @@ class OpTransform(ImageOp):
         f1, f2, f3 = _ROT_TO_ORIENT[self.rotation].to_flips()
         return Orientation.from_flips((f1, f2 != self.fliph, f3 != self.flipv))
 
+    def device_chain(self, globals_, meta):
+        w, h, colors, mono = meta
+        orientation = self._orientation()
+        if orientation in (Orientation.Normal, Orientation.Unknown):
+            return (("transform", None), None, (), meta)
+        if colors != 3:
+            return None
+        flips = orientation.to_flips()
+        out_meta = (h, w, 3, mono) if flips[0] else meta
+        return (("transform", *flips), "transform", flips, out_meta)
+
     def run(self, globals_, buf: OpBuffer) -> OpBuffer:
         orientation = self._orientation()
         if orientation in (Orientation.Normal, Orientation.Unknown):

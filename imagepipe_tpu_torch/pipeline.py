@@ -16,12 +16,16 @@ hashing and serials are byte-identical to the JAX package's. The routing of
   'plaindown', rgb, 'lut') runs the eager engine (engine.py);
 * everything else runs staged (`run`, `_run_impl`): 3-pass size planning,
   a hash chain salted with the image's content hash, the deepest cache hit
-  (latest wins), then each dirty op's `run` in turn, its result cached under
-  its chain hash (pipeline.rs:311-375). A rotated frame's rotatecrop runs
-  the rotate kernel on CUDA (kernels/rotate.py). The JAX package's fused
-  dirty suffix (`device_chain`, `_dispatch_fused`) collapses the suffix into
-  one jit to save TPU dispatch round trips and is bit-equal to this loop;
-  it is not ported.
+  (latest wins), then the dirty suffix, each stage's result cached under
+  its chain hash (pipeline.rs:311-375). Each maximal run of ops that join
+  a fused segment (`ImageOp.device_chain`: a no-op rotatecrop, to_lab,
+  basecurve, from_lab, gamma, transform) with two or more real stages, or
+  one at the chain's end with the output's quantize, runs as one segment
+  (`_dispatch_fused`): on CUDA one launch of the suffix kernel
+  (kernels/suffix.py), bit-equal to running the ops' `run` in turn, every
+  stage still cached. The other ops run their `run`; a rotated frame's
+  rotatecrop launches the rotate kernel on CUDA (kernels/rotate.py).
+  `FUSE_SUFFIX = False` runs every op's `run` instead.
 
 A Pipeline develops on one device, chosen when it is made: `device=None`
 is `default_device()`, the first CUDA device; the CPU only when asked for.
@@ -48,6 +52,7 @@ from .sources import ImageSource, image_content_hash
 from .engine import develop_fused, make_develop_plan, planar_to_hwc
 from .kernels import develop as kdev
 from .kernels import develop_scaled as kdev_scaled
+from .kernels import suffix as ksuffix
 from .ops import gofloat, demosaic, rotatecrop, colorspaces, curves, gamma, transform
 from .scaling import scale_down_srgb, scale_down_srgb16, scaling_size
 
@@ -61,6 +66,17 @@ log = logging.getLogger("imagepipe_tpu_torch")
 SERIAL_VERSION = 0
 
 PipelineCache = MultiCache
+
+# Run each fusable stretch of the dirty suffix as one segment
+# (_dispatch_fused); False runs every op's `run` in turn. Module flag, so a
+# caller can hold the two bit-equal.
+FUSE_SUFFIX = True
+
+# Cache every stage output of a fused segment under its chain hash, as the
+# per-stage loop does (pipeline.rs:369). False caches only the segment's
+# last stage: the same outputs, fewer device buffers per edit, and a later
+# edit inside the segment resumes from the stage before it.
+CACHE_FUSED_INTERMEDIATES = True
 
 
 def default_device() -> torch.device:
@@ -237,9 +253,12 @@ class Pipeline:
     # -- the scheduler (pipeline.rs:311-375) -------------------------------
 
     def run(self, cache: MultiCache | None = None) -> OpBuffer:
-        return self._run_impl(cache)
+        return self._run_impl(cache)[0]
 
-    def _run_impl(self, cache) -> OpBuffer:
+    def _run_impl(self, cache, final_quant=None):
+        """`run`, and with `final_quant` 8 or 16 the output's quantize in
+        the last fused segment when that segment ends the chain. Returns
+        (final OpBuffer, quantized [3, H, W] tensor or None)."""
         with _timing("  total pipeline"):
             ops = self.ops.all_ops()
 
@@ -279,25 +298,82 @@ class Pipeline:
                         bufin = hit
                         startpos = i + 1
 
-            # Phase D: run the dirty suffix, one stage at a time.
-            return self._execute_suffix(ops, startpos, bufin, ophashes, cache)
+            # Phase D: run the dirty suffix.
+            return self._execute_suffix(ops, startpos, bufin, ophashes, cache, final_quant)
 
-    def _execute_suffix(self, ops, startpos, bufin, ophashes, cache) -> OpBuffer:
+    def _chains(self, ops, i, buf) -> list:
+        """The device_chain of ops[i:] up to the first op that declines,
+        each given the descriptor of the one before's output."""
+        chains = []
+        meta = (buf.width, buf.height, buf.colors, buf.monochrome)
+        for op in ops[i:]:
+            c = op.device_chain(self.globals, meta)
+            if c is None:
+                break
+            chains.append(c)
+            meta = c[3]
+        return chains
+
+    def _execute_suffix(self, ops, startpos, bufin, ophashes, cache, final_quant):
         """Run ops[startpos:], caching each stage's result under its chain
-        hash (pipeline.rs:354-372), and record each stage's host ms."""
+        hash (pipeline.rs:354-372). Each maximal run of joining ops fuses
+        into one segment when that saves a launch: two or more real stages,
+        or one at the chain's end with the quantize joining. A declining op
+        (an active rotatecrop) runs its `run`, and fusion starts again
+        after it. Records the host ms of each stage or segment (keyed by
+        the segment's op names joined by '+'). Returns (final OpBuffer,
+        quantized tensor or None)."""
         self.stage_ms = {}
         sync = log.isEnabledFor(logging.DEBUG)
-        for i in range(startpos, len(ops)):
-            op = ops[i]
+        quant = None
+        i, n = startpos, len(ops)
+        while i < n:
             start = time.perf_counter()
-            bufin = op.run(self.globals, bufin)
+            chains = self._chains(ops, i, bufin) if FUSE_SUFFIX else []
+            j = i + len(chains)
+            real = sum(c[1] is not None for c in chains)
+            if real >= 2 or (j == n and final_quant and real >= 1):
+                bufin, quant = self._dispatch_fused(ops, i, chains, bufin, ophashes, cache,
+                                                    final_quant if j == n else None)
+                name = "+".join(op.name() for op in ops[i:j])
+                i = j
+            else:
+                op = ops[i]
+                bufin = op.run(self.globals, bufin)
+                if cache is not None:
+                    cache.put_arc(ophashes[i], bufin, bufin.nbytes())
+                name = op.name()
+                i += 1
             if sync:
                 _synchronize(self.device)
-            ms = self.stage_ms[op.name()] = (time.perf_counter() - start) * 1e3
-            log.info("timing: %7.1f ms for |    %s", ms, op.name())
-            if cache is not None:
-                cache.put_arc(ophashes[i], bufin, bufin.nbytes())
-        return bufin
+            ms = self.stage_ms[name] = (time.perf_counter() - start) * 1e3
+            log.info("timing: %7.1f ms for |    %s", ms, name)
+        return bufin, quant
+
+    def _dispatch_fused(self, ops, startpos, chains, bufin, ophashes, cache, final_quant):
+        """Run ops[startpos:startpos + len(chains)] as one segment
+        (kernels/suffix.run_suffix: one kernel launch on CUDA) and cache
+        each stage's buffer under its chain hash, or only the last one
+        when CACHE_FUSED_INTERMEDIATES is False. An identity stage's
+        buffer is its input's, as `op.run` returning `buf` shares it. A
+        failed build or launch raises. Returns (final OpBuffer, quantized
+        tensor or None)."""
+        keep_all = CACHE_FUSED_INTERMEDIATES and cache is not None
+        real = [k for k, c in enumerate(chains) if c[1] is not None]
+        outs, quant = ksuffix.run_suffix(
+            bufin.data, [chains[k][1] for k in real], [chains[k][2] for k in real],
+            final_quant, [keep_all or k == real[-1] for k in real])
+        out_of = dict(zip(real, outs))
+        buffers, buf = [], bufin
+        for k, c in enumerate(chains):
+            if k in out_of:
+                w, h, colors, mono = c[3]
+                buf = None if out_of[k] is None else OpBuffer(w, h, colors, mono, out_of[k])
+            buffers.append(buf)
+        if cache is not None:
+            for k in range(len(chains)) if keep_all else [len(chains) - 1]:
+                cache.put_arc(ophashes[startpos + k], buffers[k], buffers[k].nbytes())
+        return buffers[-1], quant
 
     # -- outputs (pipeline.rs:377-469) -------------------------------------
 
@@ -364,9 +440,10 @@ class Pipeline:
         self.globals.settings.linear = bits == 16
         if cache is None and self._fused_applicable():
             return self._run_fused(bits)
-        buffer = self._run_impl(cache)
+        buffer, quant = self._run_impl(cache, final_quant=bits)
         with _timing(f"  {bits} bit conversion"):
-            quant = output8bit(buffer.data) if bits == 8 else output16bit(buffer.data)
+            if quant is None:
+                quant = output8bit(buffer.data) if bits == 8 else output16bit(buffer.data)
             return planar_to_hwc(quant)
 
     def output_8bit(self, cache: MultiCache | None = None) -> SRGBImage:

@@ -4,7 +4,7 @@ registers and instructions.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 scripts/time_develop_kernels.py [--label NAME] [--kernels develop,rotate]
+    python3 scripts/time_develop_kernels.py [--label NAME] [--kernels develop,rotate,suffix]
                                             [--rotate-tile-h 8,16,32]
 
 It times whichever `imagepipe_tpu_torch` is first on the import path, so two
@@ -17,7 +17,11 @@ wrappers (`develop`, `develop_batch`, `develop_scaled`,
 `kernels.develop.build`, which every version of the port has since the
 rotate kernel landed. `--kernels rotate` times the rotate kernel alone;
 `--rotate-tile-h` times it again at each listed tile height of its staged
-route (`kernels.rotate.TILE_H`, where the version has one).
+route (`kernels.rotate.TILE_H`, where the version has one). `--kernels
+suffix` times the fused-suffix kernel (`kernels.suffix.run_suffix`, in
+versions that have it) for each segment start at the two 24 MP frames of
+`SUFFIX_SHAPES`, and beside it the eager stages it replaces
+(`suffix_plain`, the per-stage loop's torch ops) on the same inputs.
 
 What it measures, on the card it names (`nvidia-smi` name and power limit):
 
@@ -28,14 +32,21 @@ What it measures, on the card it names (`nvidia-smi` name and power limit):
   median of `REPEATS` such runs. If the host took longer to enqueue the
   launches than the sleep lasted, the figure is flagged `host_bound`. The
   rotate kernel resamples one [4, 4000, 6000] float32 source (384 MB, past
-  the L2 cache) at the three rotatecrop geometries of `ROTATE_CASES`;
+  the L2 cache) at the three rotatecrop geometries of `ROTATE_CASES`. The
+  suffix kernel runs each segment start of a 24 MP frame (to_lab from a
+  [4, H, W] f32 plane, 427 MB at 5981x4458; the later starts from the
+  plain stages' outputs) to the 8-bit quantize, every stage output kept,
+  as the staged edit path runs it, and from to_lab with a transposing
+  orientation too (`SUFFIX_ORIENTED`); the eager stages are timed the
+  same way with `EAGER_LAUNCHES` calls;
 * from idle: one call timed with CUDA events from an idle device, so the
   wrapper's host path before its launch counts too (median of `REPEATS`);
   the difference from the device ms is the wrapper's host overhead;
 * the bound: the larger of the bytes the function must move (the cropped
   plane read once, the output written once) over 3.35 TB/s and its least
   float32 work (`OPS_*`, levels counted once per source sample; the rotate
-  kernel's from the valid windows of the geometry) over 67 TFLOP/s;
+  kernel's from the valid windows of the geometry; the suffix kernel's the
+  cheaper side of each branch, `OPS_SUFFIX`) over 67 TFLOP/s;
 * registers, spills and shared memory per kernel (`nvcc -Xptxas -v` on the
   package's csrc/), and static SASS instructions per kernel
   (`cuobjdump -sass` of the built library).
@@ -117,6 +128,21 @@ ROTATE_CASES = (("rotation 0.05, crop_left 0.05", 0.05, 0.05),
                 ("rotation 0.1, crop_left 0.05", 0.1, 0.05),
                 ("rotation 0.5 (45 degrees)", 0.5, 0.0))
 
+
+# The suffix kernel: the staged edit path's two 24 MP frames (unrotated,
+# and rotated 0.05 with crop_left 0.05, the first render's), and the
+# stages a dirty suffix can start at.
+SUFFIX_SHAPES = ((6000, 4000), (5981, 4458))
+SUFFIX_STARTS = ("to_lab", "basecurve", "from_lab", "gamma")
+SUFFIX_ORIENTED = ("Rotate90",)        # orientations timed from to_lab beside Normal
+EAGER_LAUNCHES = 6       # calls of the eager stages per timed run
+# The suffix's least float32 work per pixel, each branch counted at its
+# cheaper side: to_lab (WB 8, camera matrix 21, XYZ scaling 2, three lab_f
+# 12, L/a/b 11), basecurve (n_knots - 1 interval compares, the cubic 10,
+# 2 end compares), from_lab (Lab^-1 21, XYZ->RGB 15), gamma (3 x clamp,
+# compare, linear side), transform (none), and the quantize.
+OPS_SUFFIX = {"to_lab": 54, "basecurve": 12, "from_lab": 36, "gamma": 12, "transform": 0}
+OPS_QUANT = {8: 9, 16: 18}
 
 # Opcodes counted in each kernel's SASS: special-function unit calls
 # (MUFU.RCP of a division, MUFU.LG2/EX2 of logf/expf), the division's
@@ -201,6 +227,74 @@ def rotate_bound(channels, height, width, geometry, device) -> tuple[float, str]
            + samples * (OPS_ROTATE_SAMPLE + 2 * channels)
            + nh * nw * (OPS_ROTATE_PIXEL + channels))
     return roofline(channels * height * width * 4, channels * nh * nw * 4, ops)
+
+
+def suffix_segment(device, bits=8, orientation="Normal", mono=False, exposure=0.3):
+    """[(stage, params)] of the whole chainable tail (to_lab to transform,
+    identities as stage None), as the ops' device_chain give them for a
+    synthetic Bayer (or monochrome) frame at these settings."""
+    from imagepipe_tpu_torch.buffer import OpBuffer
+
+    raw = (traw.synthetic_mono if mono else traw.synthetic_bayer)(64, 48, seed=1)
+    raw.orientation = traw.Orientation[orientation]
+    pipe = ipt.Pipeline.new_from_source(ImageSource.from_raw(raw), device)
+    pipe.globals.settings.linear = bits == 16
+    pipe.ops.basecurve.exposure = exposure
+    chains = pipe._chains(pipe.ops.all_ops(), 3, OpBuffer(64, 48, 4, mono, torch.empty(0)))
+    return [(c[1], c[2]) for c in chains]
+
+
+def suffix_bound(stages, params, height, width, keep, quant) -> tuple[float, str]:
+    """The suffix kernel's bound: the input planes read once, each kept
+    stage output and the quantized output written once, and OPS_SUFFIX."""
+    px = height * width
+    planes = 4 if stages[0] == "to_lab" else 3
+    ops = sum(OPS_SUFFIX[s] for s in stages) + (OPS_QUANT[quant] if quant else 0)
+    if "basecurve" in stages:
+        ops += np.asarray(dict(zip(stages, params))["basecurve"][0]).shape[1] - 1
+    written = 3 * px * (4 * sum(bool(k) for k in keep) + (quant // 8 if quant else 0))
+    return roofline(planes * px * 4, written, px * ops)
+
+
+def suffix_times(device) -> dict:
+    """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by,
+    eager_ms, eager_runs}} for the suffix kernel at each segment start of
+    SUFFIX_STARTS on the frames of SUFFIX_SHAPES (8-bit, Normal, every stage
+    kept) and from to_lab at the orientations of SUFFIX_ORIENTED, and the
+    eager stages on the same inputs."""
+    from imagepipe_tpu_torch.kernels import suffix as ksuf
+
+    def real(orientation):
+        seg = [(s, p) for s, p in suffix_segment(device, orientation=orientation)
+               if s is not None]
+        return [s for s, _ in seg], [p for _, p in seg]
+
+    stages, params = real("Normal")
+    cases = [(start, "Normal") for start in SUFFIX_STARTS]
+    cases += [("to_lab", o) for o in SUFFIX_ORIENTED]
+    out = {}
+    for width, height in SUFFIX_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(9)
+        bases = [torch.rand((4, height, width), generator=gen, device=device)
+                 for _ in range(INPUTS)]
+        inter = [ksuf.suffix_plain(b, stages, params)[0] for b in bases]
+        for start, orientation in cases:
+            k = SUFFIX_STARTS.index(start)
+            ins = bases if k == 0 else [o[k - 1] for o in inter]
+            st, pa = real(orientation)
+            st, pa = st[k:], pa[k:]
+            keep = [True] * len(st)
+            fns = [lambda x=x: ksuf.run_suffix(x, st, pa, 8, keep) for x in ins]
+            label = (f"suffix {width}x{height} from {start} to the 8-bit output, every stage "
+                     f"kept{'' if orientation == 'Normal' else ', ' + orientation}")
+            t = _entry(fns, fns[0], suffix_bound(st, pa, height, width, keep, 8), device)
+            eager = device_ms([lambda x=x: ksuf.suffix_plain(x, st, pa, 8, keep) for x in ins],
+                              device, EAGER_LAUNCHES, REPEATS)
+            t["eager_ms"], t["eager_runs"] = eager["ms"], eager["runs"]
+            out[label] = t
+        del bases, inter
+        torch.cuda.empty_cache()
+    return out
 
 
 def device_ms(fns, device, launches=LAUNCHES, repeats=REPEATS) -> dict:
@@ -363,7 +457,9 @@ def ptxas_report(csrc: Path, build_dir: Path) -> dict:
     flags = [f for f in kdev._NVCC_FLAGS]
     build_dir.mkdir(exist_ok=True)
     procs = []
-    for name in ("develop.cu", "develop_scaled.cu", "rotate.cu"):
+    for name in ("develop.cu", "develop_scaled.cu", "rotate.cu", "suffix.cu"):
+        if not (csrc / name).exists():
+            continue
         obj = build_dir / f"ptxas_{name}.{os.getpid()}.o"
         procs.append((obj, subprocess.Popen([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(obj),
                                              str(csrc / name)],
@@ -412,7 +508,8 @@ def sass_counts(lib: Path) -> dict:
                 if op == name or op.startswith(name + "."):
                     c[name] += 1
     return {k: v for k, v in counts.items()
-            if any(n in k for n in ("develop_kernel", "scaled_kernel", "rotate_kernel"))}
+            if any(n in k for n in ("develop_kernel", "scaled_kernel", "rotate_kernel",
+                                    "suffix_kernel"))}
 
 
 def main() -> int:
@@ -420,7 +517,8 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--json", help="also write the result line to this file")
     ap.add_argument("--kernels", default="develop,rotate",
-                    help="comma-separated: develop (the develop and scaled kernels), rotate")
+                    help="comma-separated: develop (the develop and scaled kernels), rotate, "
+                         "suffix")
     ap.add_argument("--rotate-tile-h", default="",
                     help="comma-separated staged tile heights to time the rotate kernel at too")
     args = ap.parse_args()
@@ -447,10 +545,13 @@ def main() -> int:
     if "rotate" in kernels:
         tile_hs = [int(v) for v in args.rotate_tile_h.split(",") if v]
         result["times"].update(rotate_times(device, tile_hs))
+    if "suffix" in kernels:
+        result["times"].update(suffix_times(device))
     for k, v in result["times"].items():
+        eager = f"; eager stages {v['eager_ms']:.4f} ms device" if "eager_ms" in v else ""
         print(f"  {k}: {v['ms']:.4f} ms device (runs {v['runs']}{', HOST-BOUND' if v['host_bound'] else ''}), "
-              f"{v['from_idle_ms']:.4f} ms from idle; bound {v['bound_ms']:.4f} ms by {v['bound_by']} "
-              f"(on {the_card})")
+              f"{v['from_idle_ms']:.4f} ms from idle; bound {v['bound_ms']:.4f} ms by {v['bound_by']}"
+              f"{eager} (on {the_card})")
     line = json.dumps(result)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -126,7 +126,7 @@ def test_each_op_run_matches_jax(tmp_path, source, maxwidth):
 
 def _ramp():
     data = np.arange(100 * 100 * 3, dtype=np.float32).reshape(100, 100, 3)
-    return data, JBuffer.from_hwc(data), TBuffer.from_hwc(data)
+    return data, JBuffer.from_hwc(data), TBuffer.from_hwc(data, device="cpu")
 
 
 ROTATECROP = {
@@ -171,7 +171,8 @@ def test_rotatecrop_run_matches_jax(case):
 def test_transform_rotate_buffer_matches_jax(orientation):
     data = np.random.default_rng(5).random((7, 11, 3), dtype=np.float32)
     jout = jtransform.rotate_buffer(JBuffer.from_hwc(data), Orientation[orientation])
-    tout = ttransform.rotate_buffer(TBuffer.from_hwc(data), traw.Orientation[orientation])
+    tout = ttransform.rotate_buffer(TBuffer.from_hwc(data, device="cpu"),
+                                    traw.Orientation[orientation])
     assert (tout.width, tout.height) == (jout.width, jout.height)
     np.testing.assert_array_equal(tout.to_numpy(), np.asarray(jout.data))
 
@@ -364,7 +365,10 @@ def test_run_returns_the_final_buffer(tmp_path):
     assert isinstance(tbuf, TBuffer)
     assert (tbuf.width, tbuf.height, tbuf.colors) == (jbuf.width, jbuf.height, jbuf.colors)
     np.testing.assert_allclose(tbuf.to_numpy(), np.asarray(jbuf.data), rtol=RTOL, atol=1e-5)
-    assert list(tp.stage_ms) == [op.name() for op in tp.ops.all_ops()]
+    # The rotated frame's rotatecrop runs alone; the tail after it is one
+    # fused segment (pipeline.FUSE_SUFFIX).
+    names = [op.name() for op in tp.ops.all_ops()]
+    assert list(tp.stage_ms) == names[:3] + ["+".join(names[3:])]
 
 
 def test_serial_with_rotatecrop_renders_like_jax(tmp_path):
