@@ -5,8 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each ending in torch.cuda.synchronize():
   0. setup: the card's name and power limit; build the CUDA kernels from
-     csrc/ (develop.cu, develop_scaled.cu, rotate.cu, suffix.cu and the
-     division proof, one nvcc each, in parallel);
+     csrc/ (develop.cu, develop_scaled.cu, rotate.cu with its CFA route,
+     suffix.cu and the division proof, one nvcc each, in parallel);
   1. each kernel against its plain PyTorch version on the card, at full
      size, and the proof that the kernels' reciprocal-multiply division
      (finish.cuh div_rcp) equals the IEEE one for every input they give it. The develop kernel: 24 MP Bayer 8-bit and 16-bit linear, 26 MP
@@ -41,6 +41,18 @@ Phases, each ending in torch.cuda.synchronize():
      its single-image plain develop, and the run make exactly 3 launches
      of develop_batch (2 Bayer buckets, 1 X-Trans) and none of the other
      kernels; at maxwidth 1024 exactly 3 of develop_scaled_batch only;
+  2e. the multi-process feed: two ranks spawned (the parent has CUDA
+     initialized, so not forked) form a gloo group on a FileStore in a
+     temporary directory and each runs MultiHostBatchEngine(devices=
+     ["cuda:0"]).develop_files over the same 21 files, full size and at
+     maxwidth 1024; the corrupt file (index 5) falls on rank 1. Every result
+     of each rank must be bit-equal to phase 2b's for the same path (sha256
+     of its bytes), the corrupt slot a BatchError, and each rank's run
+     launch develop_batch (full size) or develop_scaled_batch (1024) at
+     least once and nothing else. Then errors="raise": both ranks must raise
+     within 120 s, rank 1 its decode error, rank 0 a RuntimeError naming
+     rank 1 and the path. A rank that fails or is still running after
+     420 s fails the phase (every rank is killed);
   2d. the width-sharded batch path: the same files through
      BatchEngine(devices=[cuda:0, cuda:0], spatial=2).develop_files, both
      shards of each chunk on the one card. Every result must be bit-equal
@@ -60,7 +72,16 @@ Phases, each ending in torch.cuda.synchronize():
      NaN and zero pattern. Routes: the x8 downscale, the outputs 1 wide
      and 1 high and the corners outside the source must take the kernel's
      direct route (one direct launch each), every other case its staged
-     route;
+     route. The CFA route (rotate_resample_cfa, one sensor plane to four
+     colour planes) bit for bit against its plain version, one launch each:
+     a [1, 4000, 6000] plane with the RGGB and the X-Trans CFA rotated 0.05
+     with crop_left 0.05, the same with NaN and +-Inf planted, and outputs
+     1 wide and 1 high;
+  2f. the CFA route's path: a 1500x16000 (24 MP) Bayer strip DNG rendered
+     staged (Pipeline(device="cuda").output_8bit with a cache) at maxwidth
+     1: its scaled demosaic to a 1x10 stage is the CFA-aware rotated
+     resample. It must launch the CFA route once, no develop or per-channel
+     rotate kernel, and agree with the same render on the CPU;
   1d. the width-sharded develop (develop_sp: one launch of the develop
      kernel per column shard at its global column offset, a 1-column halo
      exchange between the shards, the output assembled on the first
@@ -109,13 +130,20 @@ Phases, each ending in torch.cuda.synchronize():
      the same inputs; plain versions one call from idle, median of 5; the
      host wall time and breakdown of a cached 1024-px request; the edit
      requests of phase 2c (first render, exposure edit, rotation edit) to
-     host pixels, per-stage (FUSE_SUFFIX = False) and fused in turns;
+     host pixels, per-stage (FUSE_SUFFIX = False) and fused in turns; the
+     CFA route at the three 24 MP geometries on a [1, 4000, 6000] RGGB
+     plane, its plain version from idle;
   3b. the batch path timed: develop_files throughput of the 16 Bayer files
      (source MP/s, full size and to 1024), its host split (decode, plan,
      staging, dispatch, wait, scatter) and, under torch.profiler, its
      device split (H2D, kernel, D2H) and idle share; a batched launch at
      B=8 against a loop of 8 single launches (device ms back to back) and
      the plain version (one call from idle), 24 MP 8-bit and to 1024;
+  3e. the multi-process feed timed: the two ranks over phase 3b's 16 Bayer
+     files (8 each), full size and to 1024: source MP/s of the fleet's wall
+     (the slower rank's, each run started after a barrier; median of 3)
+     beside phase 3b's single process in the same call, with each rank's
+     host split (decode, plan, stage, dispatch, wait, scatter);
   3d. the width-sharded develop at spatial 2 on one card, 60 MP Bayer
      16-bit and 24 MP Bayer 8-bit: device ms of an image's shard launches,
      of the halo exchange, of the assembly, and of the whole develop_sp
@@ -134,13 +162,17 @@ from __future__ import annotations
 
 import collections
 import copy
+import datetime
+import hashlib
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -159,7 +191,7 @@ from imagepipe_tpu_torch.kernels import develop_scaled as kds
 from imagepipe_tpu_torch.kernels import rotate as krot
 from imagepipe_tpu_torch.kernels import suffix as ksuf
 from imagepipe_tpu_torch import pipeline as ppl
-from imagepipe_tpu_torch.parallel import BatchEngine, BatchError
+from imagepipe_tpu_torch.parallel import BatchEngine, BatchError, MultiHostBatchEngine
 from imagepipe_tpu_torch.service import RenderService
 from imagepipe_tpu_torch.sources import ImageSource, image_content_hash
 
@@ -211,6 +243,16 @@ EDIT_CACHE_BYTES = 16 << 30
 SUFFIX_SHAPES = tdk.SUFFIX_SHAPES
 SUFFIX_ORIENTATIONS = ("Normal", "Rotate90", "Transverse")
 EDIT_RUNS = 3                         # fresh services per turn of phase 3c's edit requests
+# Phase 1c's CFA cases: the CFAs of the CFA route, and the staged scaled
+# demosaic to a 1-px-wide stage (a 24 MP vertical strip, maxwidth 1 -> 1x10).
+CFA_NAMES = (("RGGB", "RGGB"), ("X-Trans", "GBGGRGRGRBGBGBGGRGRGRBGBGBGGRGGRGGBG"))
+STRIP = (1500, 16000)
+# Phases 2e and 3e: the fleet's ranks (spawned processes sharing the one
+# card), the time a rank may take before the phase fails, and the time the
+# errors="raise" run may take before both ranks have raised.
+FLEET_RANKS = 2
+FLEET_TIMEOUT_S = 420
+FLEET_RAISE_LIMIT_S = 120
 
 
 def _card() -> str:
@@ -242,14 +284,15 @@ def _plan(raw, bits, device, numerics="auto", maxwidth=0, exposure=0.0):
 def _reset_counts():
     kdev.LAUNCHES = kdev.BATCH_LAUNCHES = kdev.SP_LAUNCHES = 0
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
-    krot.LAUNCHES = krot.DIRECT_LAUNCHES = 0
+    krot.LAUNCHES = krot.DIRECT_LAUNCHES = krot.CFA_LAUNCHES = 0
     ksuf.LAUNCHES = 0
 
 
 def _counts() -> dict:
     return {"develop": kdev.LAUNCHES, "develop_scaled": kds.LAUNCHES,
             "develop_batch": kdev.BATCH_LAUNCHES, "develop_scaled_batch": kds.BATCH_LAUNCHES,
-            "rotate": krot.LAUNCHES, "develop_sp": kdev.SP_LAUNCHES, "suffix": ksuf.LAUNCHES}
+            "rotate": krot.LAUNCHES, "develop_sp": kdev.SP_LAUNCHES, "suffix": ksuf.LAUNCHES,
+            "rotate_cfa": krot.CFA_LAUNCHES}
 
 
 def _upload(raw, device):
@@ -752,15 +795,16 @@ def _run_batch(device, paths, corrupt, maxwidth, want_counts, label) -> list:
     return outs
 
 
-def phase2b(device, paths, corrupt) -> tuple[dict, list]:
+def phase2b(device, paths, corrupt) -> tuple[dict, list, list]:
     """The batch path through BatchEngine.develop_files; returns the main
-    path's launches of each batched kernel and the full-size results."""
+    path's launches of each batched kernel, the full-size results and the
+    thumbnails."""
     none = {k: 0 for k in _counts()}
     full = _run_batch(device, paths, corrupt, 0, dict(none, develop_batch=3),
                       "develop_files, full size")
-    _run_batch(device, paths, corrupt, BATCH_THUMB, dict(none, develop_scaled_batch=3),
-               f"develop_files, maxwidth {BATCH_THUMB}")
-    return {"develop_batch": 3, "develop_scaled_batch": 3}, full
+    thumbs = _run_batch(device, paths, corrupt, BATCH_THUMB, dict(none, develop_scaled_batch=3),
+                        f"develop_files, maxwidth {BATCH_THUMB}")
+    return {"develop_batch": 3, "develop_scaled_batch": 3}, full, thumbs
 
 
 def phase2d(device, paths, corrupt, flat) -> int:
@@ -785,6 +829,197 @@ def phase2d(device, paths, corrupt, flat) -> int:
     _develop_files(eng, paths, corrupt, dict(none, develop_scaled_batch=3) if on_card else none,
                    f"develop_files, maxwidth {BATCH_THUMB}, spatial=2 (thumbnails develop whole)")
     return 6
+
+
+# -- the fleet: MultiHostBatchEngine in spawned ranks sharing the card --------
+
+def _digest(img) -> str:
+    """sha256 of a [H, W, 3] result's bytes (its planar buffer), shape and
+    dtype: equal digests are bit-equal results."""
+    planar = np.ascontiguousarray(np.moveaxis(img, -1, 0))
+    h = hashlib.sha256(f"{img.shape} {img.dtype.str}".encode())
+    h.update(memoryview(planar).cast("B"))
+    return h.hexdigest()
+
+
+def _fleet_check(device, paths, thumb, corrupt) -> dict:
+    """Phase 2e on one rank: develop_files at full size and at maxwidth
+    `thumb` with errors="skip" (counts zeroed just before each run and read
+    just after), then errors="raise"."""
+    out = {}
+    for maxwidth in (0, thumb):
+        eng = MultiHostBatchEngine(devices=[device], max_batch=BATCH, maxwidth=maxwidth)
+        _reset_counts()
+        outs = eng.develop_files(paths)
+        _sync(device)
+        out[str(maxwidth)] = {
+            "counts": _counts(),
+            "digests": [None if isinstance(o, BatchError) else _digest(o) for o in outs]}
+    t = time.perf_counter()
+    try:
+        eng.develop_files(paths, errors="raise")
+        raised = None
+    except Exception as e:
+        raised = {"type": type(e).__name__, "message": str(e)[:1000]}
+    out["raise"] = {"raised": raised, "seconds": time.perf_counter() - t}
+    return out
+
+
+def _fleet_time(device, paths, thumb, runs) -> dict:
+    """Phase 3e on one rank: after a warm-up, `runs` develop_files walls at
+    full size and at maxwidth `thumb`, each started after a barrier
+    (each ends in the status gather, so a rank's wall is the fleet's), with
+    the rank's host split (`timings`) of each run."""
+    import torch.distributed as dist
+
+    out = {}
+    for maxwidth in (0, thumb):
+        eng = MultiHostBatchEngine(devices=[device], max_batch=BATCH, maxwidth=maxwidth)
+        eng.develop_files(paths)
+        walls, hosts = [], []
+        for _ in range(runs):
+            eng.engine.timings.clear()
+            dist.barrier(group=eng.group)
+            t = time.perf_counter()
+            outs = eng.develop_files(paths)
+            walls.append(time.perf_counter() - t)
+            hosts.append({k: round(v * 1e3, 3) for k, v in sorted(eng.engine.timings.items())})
+        out[str(maxwidth)] = {"walls": walls, "timings": hosts, "files": len(outs),
+                              "decode_workers": eng.engine.decode_workers}
+    return out
+
+
+_FLEET_TASKS = {"check": _fleet_check, "time": _fleet_time}
+
+
+def _fleet_rank(rank, device, task, store, paths, arg, out_dir) -> None:
+    """One spawned rank: join the gloo group over the FileStore `store`, run
+    `task` on `device` (all ranks share it), write its report to out_dir/<task>_rank<rank>.json and exit 0,
+    or 1 on any failure (its traceback in the report)."""
+    import torch.distributed as dist
+
+    report = {"rank": rank, "ok": False}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=FLEET_RANKS,
+                                timeout=datetime.timedelta(seconds=FLEET_TIMEOUT_S))
+        try:
+            report.update(_FLEET_TASKS[task](torch.device(device), paths, *arg))
+            report["ok"] = True
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        report["error"] = traceback.format_exc()
+    with open(os.path.join(out_dir, f"{task}_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    sys.exit(0 if report["ok"] else 1)
+
+
+def _fleet(device, task, paths, arg) -> list[dict]:
+    """Run `task` on `device` in FLEET_RANKS spawned processes (the parent
+    has CUDA initialized, so not forked) and return their reports; fails if a rank
+    fails or is still running after FLEET_TIMEOUT_S, killing every rank
+    left."""
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as td:
+        procs = [ctx.Process(target=_fleet_rank,
+                             args=(r, str(device), task, os.path.join(td, "store"), paths, arg,
+                                   td))
+                 for r in range(FLEET_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + FLEET_TIMEOUT_S
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            if hung:
+                raise AssertionError(f"fleet {task}: ranks {hung} still running after "
+                                     f"{FLEET_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        reports = []
+        for r, p in enumerate(procs):
+            path = os.path.join(td, f"{task}_rank{r}.json")
+            if not os.path.exists(path):
+                raise AssertionError(f"fleet {task}: rank {r} exited {p.exitcode} with no report")
+            with open(path) as f:
+                reports.append(json.load(f))
+            if not reports[-1]["ok"] or p.exitcode != 0:
+                raise AssertionError(f"fleet {task}: rank {r} failed (exit {p.exitcode}):\n"
+                                     f"{reports[-1].get('error')}")
+    return reports
+
+
+def phase2e(device, paths, corrupt, full, thumbs) -> None:
+    """The multi-process feed: FLEET_RANKS spawned ranks, a gloo group on a
+    FileStore, each running MultiHostBatchEngine(devices=["cuda:0"]) over
+    phase 2b's files at full size and at maxwidth BATCH_THUMB. Every result
+    of each rank must be bit-equal to phase 2b's (`full`, `thumbs`) for the
+    same path, the corrupt file (rank 1's) a BatchError, each rank's runs
+    launch only develop_batch (full size) or develop_scaled_batch, at least
+    once; then errors="raise" must make both ranks raise within
+    FLEET_RAISE_LIMIT_S: the failing rank its own error, the other a
+    RuntimeError naming it and the path."""
+    reports = _fleet(device, "check", paths, (BATCH_THUMB, corrupt))
+    bad_rank = corrupt % FLEET_RANKS
+    for r, rep in enumerate(reports):
+        slots = list(range(len(paths)))[r::FLEET_RANKS]
+        for maxwidth, want, kernel in ((0, full, "develop_batch"),
+                                       (BATCH_THUMB, thumbs, "develop_scaled_batch")):
+            got = rep[str(maxwidth)]
+            counts = got["counts"]
+            stray = {k: v for k, v in counts.items() if v and k != kernel}
+            if device.type == "cuda" and (counts[kernel] <= 0 or stray):
+                raise AssertionError(f"fleet rank {r} maxwidth {maxwidth}: launches {counts}, "
+                                     f"want {kernel} > 0 and no other")
+            if len(got["digests"]) != len(slots):
+                raise AssertionError(f"fleet rank {r}: {len(got['digests'])} results for "
+                                     f"{len(slots)} files")
+            for i, digest in zip(slots, got["digests"]):
+                if i == corrupt:
+                    if digest is not None:
+                        raise AssertionError(f"fleet rank {r}: the corrupt slot holds a result")
+                elif digest != _digest(want[i]):
+                    raise AssertionError(f"fleet rank {r} maxwidth {maxwidth}: {paths[i]} "
+                                         f"differs from phase 2b's result")
+            print(f"  rank {r}, maxwidth {maxwidth}: {len(slots)} files (slots {slots}), "
+                  f"launches {counts}; every result bit-equal to phase 2b's"
+                  + (f", the corrupt file a BatchError" if corrupt in slots else ""))
+        raised, seconds = rep["raise"]["raised"], rep["raise"]["seconds"]
+        print(f"  rank {r}, errors=\"raise\": raised {raised} after {seconds:.2f} s")
+        if raised is None or seconds > FLEET_RAISE_LIMIT_S:
+            raise AssertionError(f"fleet rank {r}: errors='raise' gave {raised} in {seconds} s")
+        named = raised["type"] == "RuntimeError" and f"rank {bad_rank}" in raised["message"]
+        if r == bad_rank and named:
+            raise AssertionError(f"fleet rank {r}: raised its peer's error, not its own")
+        if r != bad_rank and not (named and paths[corrupt] in raised["message"]):
+            raise AssertionError(f"fleet rank {r}: {raised} does not name rank {bad_rank} "
+                                 f"and {paths[corrupt]}")
+
+
+def phase3e(device, bayer_paths, single_mps, card) -> None:
+    """The fleet timed: FLEET_RANKS ranks sharing the card over the 16 Bayer
+    files, source MP/s of the slowest rank's wall (median of 3), beside
+    phase 3b's single-process BatchEngine, with each rank's host split."""
+    reports = _fleet(device, "time", bayer_paths, (BATCH_THUMB, 3))
+    mp = len(bayer_paths) * BAYER[0] * BAYER[1] / 1e6
+    for maxwidth in (0, BATCH_THUMB):
+        label = "full size" if not maxwidth else f"-> {maxwidth}"
+        per = [rep[str(maxwidth)] for rep in reports]
+        walls = [max(p["walls"][i] for p in per) * 1e3 for i in range(len(per[0]["walls"]))]
+        wall = statistics.median(walls)
+        print(f"  fleet of {FLEET_RANKS} ranks on one card, {len(bayer_paths)} x 24 MP Bayer, "
+              f"{label}: {mp / wall * 1e3:.1f} source MP/s (median of {len(walls)} fleet walls "
+              f"{[round(w, 1) for w in walls]} ms), single process (phase 3b, this call) "
+              f"{single_mps[label]:.1f} MP/s (on {card})")
+        for r, p in enumerate(per):
+            print(f"    rank {r}: {p['files']} files, {p['decode_workers']} decode threads, walls "
+                  f"{[round(w * 1e3, 1) for w in p['walls']]} ms; host ms of the last run "
+                  f"{p['timings'][-1]}")
 
 
 def _device_split(prof, wall_ms):
@@ -817,13 +1052,15 @@ def _device_split(prof, wall_ms):
     return dict(spans), busy / 1e3
 
 
-def phase3b(device, bayer_paths, bayer_bases, card) -> dict:
+def phase3b(device, bayer_paths, bayer_bases, card) -> tuple[dict, dict]:
     """The batch path timed: develop_files throughput, host and device
-    split, and the batched launch against a loop of single launches."""
+    split, and the batched launch against a loop of single launches.
+    Returns the kernels' times and develop_files' source MP/s by size."""
     from torch.profiler import ProfilerActivity, profile
 
     mp = len(bayer_paths) * BAYER[0] * BAYER[1] / 1e6
     sources = [decode_file(p) for p in bayer_paths]
+    mps = {}
     for maxwidth in (0, BATCH_THUMB):
         eng = BatchEngine(devices=[device], max_batch=BATCH, maxwidth=maxwidth)
         eng.develop_files(bayer_paths)                    # warm-up
@@ -836,6 +1073,7 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> dict:
         host = {k: round(v * 1e3, 3) for k, v in sorted(eng.timings.items())}
         wall = statistics.median(walls)
         label = "full size" if not maxwidth else f"-> {maxwidth}"
+        mps[label] = mp / wall * 1e3
         print(f"  develop_files, {len(bayer_paths)} x 24 MP Bayer, {label}: {mp / wall * 1e3:.1f} "
               f"source MP/s (median of 3 walls {[round(w, 1) for w in walls]} ms); host ms of "
               f"the last run {host} (decode summed over {eng.decode_workers} threads) (on {card})")
@@ -911,7 +1149,7 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> dict:
               f"loop runs {t['loop']['runs']}{', HOST-BOUND' if t['loop']['host_bound'] else ''}), "
               f"plain one call from idle (on {card})")
         times.update(_timing(name, t["batched"]["ms"], t["plain"]["ms"], bound, BATCH))
-    return times
+    return times, mps
 
 
 def sp_bound(plan, plane, shards) -> tuple[float, str]:
@@ -1056,6 +1294,87 @@ def phase1c(device, bayer) -> float:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return worst
+
+
+def _check_rotate_cfa(label, src, geometry, cfa) -> float:
+    """The rotate kernel's CFA route against its plain version on the
+    sensor plane `src` [1, H, W]: bit-equal (floats to the bit where not
+    NaN, NaN at the same places), one CFA launch on the card; returns max
+    |diff| (0 expected)."""
+    _, h, w = src.shape
+    tl, tr, bl, nw, nh = geometry
+    before = krot.CFA_LAUNCHES
+    got = krot.rotate_resample_cfa(src, w, h, tl, tr, bl, nw, nh, cfa)
+    launched = krot.CFA_LAUNCHES - before
+    want = krot.rotate_resample_cfa_plain(src, w, h, tl, tr, bl, nw, nh, cfa)
+    _sync(src.device)
+    same, maxd = _same_bits(got, want)
+    print(f"  CFA {label}: [1, {h}, {w}] -> [4, {nh}, {nw}], "
+          f"{'bit-equal' if same else 'DIFFERS'} (max |diff| {maxd}; "
+          f"{int(torch.isnan(got).sum())} NaN, {int((got == 0).sum())} zeros of {got.numel()})")
+    if not same:
+        raise AssertionError(f"CFA {label}: differs from the plain version (max |diff| {maxd})")
+    if src.device.type == "cuda" and launched != 1:
+        raise AssertionError(f"CFA {label}: {launched} CFA-route launches, want 1")
+    return maxd
+
+
+def phase1c_cfa(device, bayer) -> float:
+    """The rotate kernel's CFA route vs its plain version, bit for bit: a
+    24 MP sensor plane with the RGGB and the X-Trans CFA rotated 0.05 with
+    crop_left 0.05, the same with NaN and +-Inf planted, and outputs 1
+    wide and 1 high. Returns the largest |diff|."""
+    width, height = bayer
+    geometry = tdk.rotatecrop_geometry(0.05, 0.05, width, height)
+    src = _rotate_source(device, (1, height, width), 11)
+    bad = _plant_nonfinite(src.clone(), 12)
+    small = _rotate_source(device, (1, 100, 100), 13)
+    worst = 0.0
+    for label, name in CFA_NAMES:
+        cfa = traw.CFA(name)
+        worst = max(worst, _check_rotate_cfa(f"{label} rotation 0.05, crop_left 0.05", src,
+                                             geometry, cfa))
+        worst = max(worst, _check_rotate_cfa(
+            f"{label} rotation 0.05, crop_left 0.05, {ROTATE_NONFINITE} each of NaN, +Inf, "
+            f"-Inf planted", bad, geometry, cfa))
+        for case, small_geometry in (("output 1 wide", ((0, 0), (99, 10), (-10, 99), 1, 50)),
+                                     ("output 1 high", ((0, 0), (99, 10), (-10, 99), 50, 1))):
+            worst = max(worst, _check_rotate_cfa(f"{label} {case}", small, small_geometry, cfa))
+    del src, bad, small
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase2f(device) -> int:
+    """The CFA route's main path: a staged render (Pipeline.output_8bit
+    with a cache) of a 24 MP vertical strip at maxwidth 1, whose scaled
+    demosaic to a 1-px-wide stage is the CFA-aware rotated resample. It must
+    launch the CFA route once and the other resample and develop kernels
+    never, and agree with the same render on the CPU. Returns the CFA
+    route's launches."""
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "strip.dng")
+        dng.write_dng(path, traw.synthetic_bayer(*STRIP, seed=14))
+        pipe = ipt.Pipeline.new_from_file(path, device)
+        pipe.globals.settings.maxwidth = 1
+        _reset_counts()
+        img = pipe.output_8bit(MultiCache(EDIT_CACHE_BYTES)).data
+        _sync(device)
+        counts = _counts()
+        cpu = ipt.Pipeline.new_from_file(path, "cpu")
+        cpu.globals.settings.maxwidth = 1
+        want = cpu.output_8bit(MultiCache(EDIT_CACHE_BYTES)).data
+    print(f"  staged render of a {STRIP[0]}x{STRIP[1]} Bayer strip at maxwidth 1: "
+          f"{img.shape}, demosaic stage {pipe.globals.settings.demosaic_width}x"
+          f"{pipe.globals.settings.demosaic_height}; launches {counts}")
+    stray = {k: v for k, v in counts.items() if v and k not in ("rotate_cfa", "suffix")}
+    if device.type == "cuda" and (counts["rotate_cfa"] != 1 or stray):
+        raise AssertionError(f"staged 1-px-wide render: launches {counts}, want rotate_cfa 1")
+    if img.shape != (STRIP[1] // STRIP[0], 1, 3):
+        raise AssertionError(f"staged 1-px-wide render: shape {img.shape}")
+    _check("staged 1-px-wide render, card vs CPU", img, want)
+    return counts["rotate_cfa"]
 
 
 def _suffix_inputs(device, shape, seed) -> list:
@@ -1289,6 +1608,22 @@ def phase3c(device, bayer, card) -> dict:
     del src
     torch.cuda.empty_cache()
 
+    # The CFA route at the same geometries on a 24 MP RGGB sensor plane.
+    ct = tdk.rotate_cfa_times(device)
+    src = _rotate_source(device, (1, height, width), 7)
+    tl, tr, bl, nw, nh = tdk.rotatecrop_geometry(*ROTATE_CASES[0][1:], width, height)
+    cfa = traw.CFA("RGGB")
+    pms = _plain_ms(lambda: krot.rotate_resample_cfa_plain(src, width, height, tl, tr, bl, nw, nh,
+                                                           cfa), device)
+    for label, t in ct.items():
+        _show(label, t, card)
+    main = next(iter(ct))
+    print(f"  {main}: plain version {pms:.4f} ms one call from idle")
+    times.update(_timing("rotate_cfa", ct[main]["ms"], pms,
+                         (ct[main]["bound_ms"], ct[main]["bound_by"])))
+    del src
+    torch.cuda.empty_cache()
+
     st = tdk.suffix_times(device)
     for label, t in st.items():
         _show(label, t, card)
@@ -1365,6 +1700,8 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "imagepipe_tpu/kernels/develop_pallas.py:680,701"),
     ("suffix", "imagepipe_tpu_torch/csrc/suffix.cu",
      "imagepipe_tpu/pipeline.py:329 (_dispatch_fused, an XLA jit; no Pallas)"),
+    ("rotate_cfa", "imagepipe_tpu_torch/csrc/rotate.cu",
+     "imagepipe_tpu/scaling.py:79 (_transform_impl, CFA mode; XLA)"),
 )
 
 
@@ -1395,6 +1732,7 @@ def main() -> int:
                   **phase1b(device, bayer_bases, xtrans_bases))
     print("phase 1c: the rotate kernel vs its plain version")
     errors["rotate"] = phase1c(device, BAYER)
+    errors["rotate_cfa"] = phase1c_cfa(device, BAYER)
     print("phase 1d: the width-sharded develop's shard launches vs the unsharded kernel "
           "and the plain version")
     errors["develop_sp"] = phase1d(device, SP_CASES, bayer_bases)
@@ -1404,21 +1742,30 @@ def main() -> int:
     launches, scaled_launches = phase2(device, BAYER)
     print("phase 2c: the staged edit path, RenderService")
     rotate_launches, suffix_launches = phase2c(device, BAYER, card)
+    print("phase 2f: the CFA route's path, a staged scaled demosaic to a 1-px-wide stage")
+    cfa_launches = phase2f(device)
     with tempfile.TemporaryDirectory() as td:
         paths, corrupt = _batch_files(td, bayer_bases, xtrans_bases)
         print("phase 2b: the batch path, BatchEngine.develop_files")
-        batch_counts, flat = phase2b(device, paths, corrupt)
+        batch_counts, flat, thumbs = phase2b(device, paths, corrupt)
         print("phase 2d: the width-sharded batch path, BatchEngine(spatial=2).develop_files")
         sp_launches = phase2d(device, paths, corrupt, flat)
-        del flat
+        print(f"phase 2e: the multi-process feed, {FLEET_RANKS} ranks of MultiHostBatchEngine "
+              f"on one card")
+        phase2e(device, paths, corrupt, flat, thumbs)
+        del flat, thumbs
         counts = dict(develop=launches, develop_scaled=scaled_launches, rotate=rotate_launches,
-                      develop_sp=sp_launches, suffix=suffix_launches, **batch_counts)
+                      develop_sp=sp_launches, suffix=suffix_launches, rotate_cfa=cfa_launches,
+                      **batch_counts)
         print("phase 3: timing")
         times = phase3(device, BAYER, card)
         times.update(phase3c(device, BAYER, card))
         print("phase 3b: timing the batch path")
         bayer_paths = [p for p in paths[:17] if p != paths[corrupt]]
-        times.update(phase3b(device, bayer_paths, bayer_bases, card))
+        batch_times, single_mps = phase3b(device, bayer_paths, bayer_bases, card)
+        times.update(batch_times)
+        print("phase 3e: timing the multi-process feed")
+        phase3e(device, bayer_paths, single_mps, card)
         print("phase 3d: timing the width-sharded develop")
         times.update(phase3d(device, card))
 

@@ -84,6 +84,27 @@
 //   wide or high: inf * 0 gives NaN, and the min/max argument does not
 //   hold) or whose staged block, two buffers of its largest box, would
 //   exceed a block's shared memory (a deep rotated downscale).
+// * cfa (rotate_kernel_cfa): the CFA-aware resample, the CFA mode of the
+//   JAX package's scaling._transform_impl (:144-175; XLA there, no Pallas
+//   kernel). One sensor plane [1, H, W] in, four colour planes [4, nh, nw]
+//   out. A thread per output pixel walks the full K_y x K_x window from
+//   device memory as the direct route does, with four sums and four counts
+//   in registers; each sample's colour is the CFA's pattern tile
+//   (raw.CFA.pattern_tile, nt x nt u8, staged in shared memory per block)
+//   at (min(y, H-1) % nt, min(x, W-1) % nt), and the sample adds val * w to
+//   that colour's sum and w to its count:
+//     sum[c] += src[yc][xc] * w;  count[c] += w   (c the sample's colour)
+//     out[c] = count[c] > 0 ? sum[c] / count[c] : 0
+//   Bit-equal to the plain version (scaling._transform_rotated with the
+//   CFA), which adds where(colour == c, val * w, +0) to every colour: a
+//   sum never becomes -0 (as argued above), so adding +0 to the other
+//   colours leaves them bit-unchanged. An invalid sample (w = +0 from the
+//   select) still adds val * w to its colour, so a NaN or +-Inf read at a
+//   clamped index makes that colour's sum NaN, as in the plain version:
+//   this route has no shorter walk; only the weight of an invalid sample,
+//   +0 whatever its factor, is not computed. An output 1 wide or high
+//   holds NaN in its tables (the skips are inf): every valid weight is NaN,
+//   every count NaN or +0 and fails > 0: zeros, as the plain version gives.
 //
 // Not carried over from the Pallas kernel: the one-hot bf16 hi/mid/lo MXU
 // selection (a TPU gather workaround), the 8/128-aligned DMA windows, the
@@ -100,6 +121,8 @@ constexpr int kWarps = 8;       // warps per block: rows of a tile pass
 constexpr int kThreads = kTileW * kWarps;
 constexpr int kMaxSmem = 232448;
 constexpr float kFltMax = 3.402823466e+38f;   // NaN and +-Inf fail |v| <= kFltMax
+constexpr int kMaxPatternTile = 48;           // raw.PATTERN_TILE
+constexpr int kCfaColours = 4;
 
 struct RotateArgs {
   const float* src;       // [C, H, W]
@@ -158,21 +181,35 @@ __device__ __forceinline__ void store_pixel(const RotateArgs& a, int row, int co
   }
 }
 
+// Output pixel (row, col)'s window and centre from the global tables.
+struct Window {
+  int fy, ty, fx, tx;
+  float cy, cx;
+};
+
+__device__ __forceinline__ Window window_at(const RotateArgs& a, int row, int col) {
+  const float* __restrict__ rows = a.rows;
+  const float* __restrict__ cols = a.cols;
+  const int nh = a.nh, nw = a.nw;
+  Window v;
+  v.fy = sat_idx(__fadd_rn(rows[0 * nh + row], cols[0 * nw + col]), a.height - 1);
+  v.ty = sat_idx(__fadd_rn(rows[1 * nh + row], cols[1 * nw + col]), a.height - 1);
+  v.fx = sat_idx(__fadd_rn(rows[2 * nh + row], cols[2 * nw + col]), a.width - 1);
+  v.tx = sat_idx(__fadd_rn(rows[3 * nh + row], cols[3 * nw + col]), a.width - 1);
+  v.cy = __fadd_rn(rows[4 * nh + row], cols[4 * nw + col]);
+  v.cx = __fadd_rn(rows[5 * nh + row], cols[5 * nw + col]);
+  return v;
+}
+
 template <int C>
 __global__ void __launch_bounds__(256) rotate_kernel_direct(const RotateArgs a) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = blockIdx.y * blockDim.y + threadIdx.y;
   if (col >= a.nw || row >= a.nh) return;
 
-  const float* __restrict__ rows = a.rows;
-  const float* __restrict__ cols = a.cols;
-  const int nh = a.nh, nw = a.nw;
-  const int fy = sat_idx(__fadd_rn(rows[0 * nh + row], cols[0 * nw + col]), a.height - 1);
-  const int ty = sat_idx(__fadd_rn(rows[1 * nh + row], cols[1 * nw + col]), a.height - 1);
-  const int fx = sat_idx(__fadd_rn(rows[2 * nh + row], cols[2 * nw + col]), a.width - 1);
-  const int tx = sat_idx(__fadd_rn(rows[3 * nh + row], cols[3 * nw + col]), a.width - 1);
-  const float cy = __fadd_rn(rows[4 * nh + row], cols[4 * nw + col]);
-  const float cx = __fadd_rn(rows[5 * nh + row], cols[5 * nw + col]);
+  const Window v = window_at(a, row, col);
+  const int fy = v.fy, ty = v.ty, fx = v.fx, tx = v.tx;
+  const float cy = v.cy, cx = v.cx;
 
   const long long plane = static_cast<long long>(a.height) * a.width;
   const float* __restrict__ src = a.src;
@@ -203,6 +240,69 @@ __global__ void __launch_bounds__(256) rotate_kernel_direct(const RotateArgs a) 
     }
   }
   store_pixel<C>(a, row, col, sums, count);
+}
+
+// The CFA route: a.src is one sensor plane, a.out four colour planes;
+// tile [nt, nt] the pattern tile's colours.
+__global__ void __launch_bounds__(256) rotate_kernel_cfa(const RotateArgs a,
+                                                         const unsigned char* __restrict__ tile,
+                                                         int nt) {
+  __shared__ unsigned char tile_s[kMaxPatternTile * kMaxPatternTile];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < nt * nt; i += blockDim.x * blockDim.y) tile_s[i] = tile[i];
+  __syncthreads();
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (col >= a.nw || row >= a.nh) return;
+
+  const Window v = window_at(a, row, col);
+  const float* __restrict__ src = a.src;
+  float sums[kCfaColours], counts[kCfaColours];
+#pragma unroll
+  for (int c = 0; c < kCfaColours; ++c) sums[c] = counts[c] = 0.0f;
+  // The tile column of the window's first sample and of the last source
+  // column, where min(x, W - 1) clamps.
+  const int xm0 = v.fx % nt, xm_clamped = (a.width - 1) % nt;
+
+  for (int ky = 0; ky < a.k_y; ++ky) {
+    const int y = v.fy + ky;
+    const bool valid_y = y <= v.ty;
+    const int yc = min(y, a.height - 1);
+    const float dy = __fdiv_rn(__fsub_rn(static_cast<float>(y), v.cy), a.syy);
+    const float dy2 = __fmul_rn(dy, dy);
+    const float* __restrict__ srow = src + static_cast<long long>(yc) * a.width;
+    const unsigned char* trow = tile_s + (yc % nt) * nt;
+    int xm = xm0;                           // x % nt, kept without a division
+    for (int kx = 0; kx < a.k_x; ++kx) {
+      const int x = v.fx + kx;
+      const bool clamped = x > a.width - 1;
+      const int xc = clamped ? a.width - 1 : x;
+      // An invalid sample's weight is the select's +0 whatever its factor
+      // would be, so the factor is computed for valid samples only.
+      float w = 0.0f;
+      if (valid_y && x <= v.tx) {
+        const float dx = __fdiv_rn(__fsub_rn(static_cast<float>(x), v.cx), a.sxx);
+        w = __fsub_rn(__fsub_rn(1.0f, __fmul_rn(dx, dx)), dy2);
+        w = w < 0.0f ? 0.0f : w;
+      }
+      const float val = __fmul_rn(srow[xc], w);
+      const int colour = trow[clamped ? xm_clamped : xm];
+      xm = xm + 1 == nt ? 0 : xm + 1;
+#pragma unroll
+      for (int c = 0; c < kCfaColours; ++c) {
+        if (colour == c) {
+          sums[c] = __fadd_rn(sums[c], val);
+          counts[c] = __fadd_rn(counts[c], w);
+        }
+      }
+    }
+  }
+  float* const out = a.out + static_cast<long long>(row) * a.nw + col;
+  const long long out_plane = static_cast<long long>(a.nh) * a.nw;
+#pragma unroll
+  for (int c = 0; c < kCfaColours; ++c) {
+    out[c * out_plane] = counts[c] > 0.0f ? __fdiv_rn(sums[c], counts[c]) : 0.0f;
+  }
 }
 
 // A staged tile: its first output row and column and its source box (origin
@@ -495,4 +595,36 @@ extern "C" int rotate_resample_launch(
     case 8: return static_cast<int>(launch<8>(a, st, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// C entry point for ctypes: the CFA-aware resample of one sensor plane src
+// [1, height, width] f32 into out [4, nh, nw] f32, with the tables of
+// rotate_resample_launch and the pattern tile tile [nt, nt] u8 (colours
+// 0..3; kernels/rotate.py::rotate_resample_cfa). Returns the cudaError_t of
+// the launch (0 = success).
+extern "C" int rotate_cfa_launch(const float* src, int height, int width, const float* rows,
+                                 const float* cols, int nh, int nw, float sxx, float syy,
+                                 int k_x, int k_y, const unsigned char* tile, int nt,
+                                 float* out, void* stream) {
+  if (nh <= 0 || nw <= 0 || height <= 0 || width <= 0 || k_x <= 0 || k_y <= 0 ||
+      nt <= 0 || nt > kMaxPatternTile || (nh + 7) / 8 > 65535 || tile == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  RotateArgs a = {};
+  a.src = src;
+  a.height = height;
+  a.width = width;
+  a.rows = rows;
+  a.cols = cols;
+  a.nh = nh;
+  a.nw = nw;
+  a.sxx = sxx;
+  a.syy = syy;
+  a.k_x = k_x;
+  a.k_y = k_y;
+  a.out = out;
+  const dim3 block(32, 8);
+  const dim3 grid((nw + block.x - 1) / block.x, (nh + block.y - 1) / block.y);
+  rotate_kernel_cfa<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a, tile, nt);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -23,9 +23,17 @@ launch of csrc/rotate.cu, which replaces the Pallas `_rotate_kernel`.
   value or whose staged block would exceed `STAGE_SMEM_BYTES` (a deep
   rotated downscale). All tables go to the card in one pinned, non-blocking
   copy.
+* `rotate_resample_cfa(src, ..., cfa)` is the CFA-aware form: one sensor
+  plane [1, H, W] in, four colour planes [4, nh, nw] out, each sample
+  counted in its colour of the CFA's pattern tile. It is the CFA mode of
+  the JAX package's `scaling._transform_impl` (an XLA gather there), and
+  launches csrc/rotate.cu's CFA route (`rotate_kernel_cfa`, a thread per
+  pixel walking its full window); its plain version is
+  `rotate_resample_cfa_plain`. The CPU and other devices are routed as
+  above.
 * `LAUNCHES` counts the kernel's launches, `DIRECT_LAUNCHES` those on the
-  direct route. The library is built and bound by kernels/develop.py, with
-  the develop kernels.
+  direct route, `CFA_LAUNCHES` the CFA route's. The library is built and
+  bound by kernels/develop.py, with the develop kernels.
 
 Numerics: every operation of the kernel is an explicit round-to-nearest
 intrinsic in the plain version's order, so the two agree bit for bit
@@ -46,14 +54,17 @@ import torch
 from ..scaling import RotatedGeometry, _transform_rotated, rotated_geometry, sat_floor_np
 from . import develop as kdev
 
-__all__ = ["rotate_resample_planar", "rotate_resample_plain", "rotate_tile_plan",
-           "tile_boxes", "RotateTilePlan", "check_source", "LAUNCHES", "DIRECT_LAUNCHES",
-           "MAX_COMPONENTS", "MAX_ABS_DIFF", "TILE_W", "TILE_H", "STAGE_SMEM_BYTES"]
+__all__ = ["rotate_resample_planar", "rotate_resample_plain", "rotate_resample_cfa",
+           "rotate_resample_cfa_plain", "rotate_tile_plan", "tile_boxes", "RotateTilePlan",
+           "check_source", "LAUNCHES", "DIRECT_LAUNCHES", "CFA_LAUNCHES", "MAX_COMPONENTS",
+           "MAX_ABS_DIFF", "TILE_W", "TILE_H", "STAGE_SMEM_BYTES"]
 
 # Kernel launches by `rotate_resample_planar` since import (or since a caller
-# reset it to 0), and those of them on the direct route.
+# reset it to 0), and those of them on the direct route; launches of the CFA
+# route by `rotate_resample_cfa`.
 LAUNCHES = 0
 DIRECT_LAUNCHES = 0
+CFA_LAUNCHES = 0
 
 # Largest channel count the kernel takes (the Pallas kernel's limit).
 MAX_COMPONENTS = 8
@@ -224,4 +235,45 @@ def rotate_resample_planar(src: torch.Tensor, width, height, topleft, topright,
     global LAUNCHES, DIRECT_LAUNCHES
     LAUNCHES += 1
     DIRECT_LAUNCHES += not staged
+    return out
+
+
+def rotate_resample_cfa_plain(src: torch.Tensor, width, height, topleft, topright,
+                              bottomleft, nwidth, nheight, cfa) -> torch.Tensor:
+    """The CFA route's computation in plain PyTorch, on the source's device."""
+    return _transform_rotated(src, width, height, topleft, topright, bottomleft,
+                              nwidth, nheight, 4, cfa)
+
+
+def rotate_resample_cfa(src: torch.Tensor, width, height, topleft, topright,
+                        bottomleft, nwidth, nheight, cfa) -> torch.Tensor:
+    """CFA-aware rotated resample of one sensor plane [1, H, W] float32 ->
+    [4, nheight, nwidth] float32 (one plane per CFA colour) on the source's
+    device."""
+    width, height, nwidth, nheight = (int(v) for v in (width, height, nwidth, nheight))
+    check_source(src, width, height, nwidth, nheight, 1)
+    if cfa is None or not cfa.is_valid():
+        raise ValueError(f"rotate kernel, CFA route: invalid CFA {cfa!r}")
+    if src.device.type == "cpu":
+        return rotate_resample_cfa_plain(src, width, height, topleft, topright, bottomleft,
+                                         nwidth, nheight, cfa)
+    if src.device.type != "cuda":
+        raise ValueError(f"rotate kernel: unsupported device {src.device}")
+    g = rotated_geometry(width, height, topleft, topright, bottomleft, nwidth, nheight)
+    tile = np.ascontiguousarray(cfa.pattern_tile(), dtype=np.uint8)     # [48, 48]
+    terms = np.concatenate([g.rows.ravel(), g.cols.ravel()])
+    tables = kdev.upload(np.concatenate([terms.view(np.uint8), tile.ravel()]), src.device)
+    base = tables.data_ptr()
+    out = torch.empty((4, nheight, nwidth), dtype=torch.float32, device=src.device)
+    lib = kdev._library()
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    with torch.cuda.device(src.device):
+        rc = lib.rotate_cfa_launch(
+            src.data_ptr(), height, width, base, base + 4 * g.rows.size, nheight, nwidth,
+            float(g.sxx), float(g.syy), g.k_x, g.k_y, base + terms.nbytes, tile.shape[0],
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"rotate kernel (CFA route) launch failed: cudaError {rc}")
+    global CFA_LAUNCHES
+    CFA_LAUNCHES += 1
     return out

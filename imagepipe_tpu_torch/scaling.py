@@ -17,12 +17,14 @@ window gives 0.
   unroll of the JAX file are TPU workarounds and are not ported.
 * Rotated geometry (rotatecrop) is `_transform_impl`: the window bounds
   vary along both axes, so each (ky, kx) step gathers one sample per output
-  pixel. On CUDA the non-CFA case is the rotate kernel
-  (kernels/rotate.py, csrc/rotate.cu); `_transform_rotated` is its plain
-  version and the CPU's executor. The CFA-aware rotated resample is
-  reached only by a staged scaled demosaic to an output 1 pixel wide or
-  high (an extent of 1 is not axis-aligned); it runs on the CPU and raises
-  on CUDA (ROADMAP A12).
+  pixel. On CUDA it is the rotate kernel (kernels/rotate.py,
+  csrc/rotate.cu): `rotate_resample_planar` per channel, and
+  `rotate_resample_cfa`, the kernel's CFA route, for the CFA-aware form.
+  That form is reached by a staged scaled demosaic to an output 1 pixel
+  wide or high (an extent of 1 is not axis-aligned) and by
+  `transform_buffer(..., cfa=...)` with a rotated geometry.
+  `_transform_rotated` is the plain version of both and the CPU's
+  executor.
 
 Every window index and centre is host numpy float32 with two roundings
 (`aligned_axes`, `rotated_geometry`); a rotated geometry leaves one device
@@ -313,23 +315,20 @@ def transform_buffer_planar(src_chw: torch.Tensor, width, height, topleft,
                             cfa=None) -> torch.Tensor:
     """The resampler on a planar [C, H, W] tensor -> [C', nh, nw] float32
     (C' = 4 with `cfa`, else `components`). Axis-aligned geometry runs the
-    eager aligned resampler; a rotated one without a CFA goes to
-    kernels/rotate.py (the CUDA kernel for a CUDA tensor, its plain version
-    on the CPU), with a CFA to `_transform_rotated` on the CPU."""
+    eager aligned resampler; a rotated one goes to kernels/rotate.py (the
+    CUDA kernel for a CUDA tensor, its plain version on the CPU): its CFA
+    route with `cfa`, else the per-channel resample."""
     width, height, nwidth, nheight, components = (
         int(v) for v in (width, height, nwidth, nheight, components))
     src_chw = src_chw.to(torch.float32)
     if _is_aligned(topleft, topright, bottomleft, nwidth, nheight):
         return _transform_aligned(src_chw, width, height, topleft, topright,
                                   bottomleft, nwidth, nheight, components, cfa)
-    if cfa is not None:
-        if src_chw.device.type != "cpu":
-            raise NotImplementedError(
-                "CFA-aware rotated resample on CUDA: ROADMAP A12")
-        return _transform_rotated(src_chw, width, height, topleft, topright,
-                                  bottomleft, nwidth, nheight, components, cfa)
     from .kernels import rotate as krot
 
+    if cfa is not None:
+        return krot.rotate_resample_cfa(src_chw[:1].contiguous(), width, height, topleft,
+                                        topright, bottomleft, nwidth, nheight, cfa)
     return krot.rotate_resample_planar(
         src_chw[:components].contiguous(), width, height, topleft, topright,
         bottomleft, nwidth, nheight, components)

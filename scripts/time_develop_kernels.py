@@ -22,6 +22,10 @@ suffix` times the fused-suffix kernel (`kernels.suffix.run_suffix`, in
 versions that have it) for each segment start at the two 24 MP frames of
 `SUFFIX_SHAPES`, and beside it the eager stages it replaces
 (`suffix_plain`, the per-stage loop's torch ops) on the same inputs.
+`--kernels rotate_cfa` times the rotate kernel's CFA route
+(`kernels.rotate.rotate_resample_cfa`, in versions that have it) on one
+[1, 4000, 6000] float32 sensor plane (RGGB) at the three rotatecrop
+geometries of `ROTATE_CASES`.
 
 What it measures, on the card it names (`nvidia-smi` name and power limit):
 
@@ -218,15 +222,41 @@ def rotate_windows(height, width, geometry, device) -> tuple[int, int, int]:
     return cols_total, rows_total, samples
 
 
-def rotate_bound(channels, height, width, geometry, device) -> tuple[float, str]:
-    """The rotate kernel's bound: the source read once, the output written
-    once, and the operations of the samples of each pixel's valid window."""
+def rotate_bound(channels, height, width, geometry, device,
+                 out_channels=None) -> tuple[float, str]:
+    """The rotate kernel's bound: the source's `channels` planes read once,
+    the output's `out_channels` planes (default `channels`; 4 for the CFA
+    route's one sensor plane) written once, and the operations of the
+    samples of each pixel's valid window."""
+    out_channels = channels if out_channels is None else out_channels
     nw, nh = geometry[3], geometry[4]
     wcols, wrows, samples = rotate_windows(height, width, geometry, device)
     ops = (wcols * OPS_ROTATE_COLUMN + wrows * OPS_ROTATE_ROW
            + samples * (OPS_ROTATE_SAMPLE + 2 * channels)
-           + nh * nw * (OPS_ROTATE_PIXEL + channels))
-    return roofline(channels * height * width * 4, channels * nh * nw * 4, ops)
+           + nh * nw * (OPS_ROTATE_PIXEL + out_channels))
+    return roofline(channels * height * width * 4, out_channels * nh * nw * 4, ops)
+
+
+def rotate_cfa_times(device) -> dict:
+    """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by}} for
+    the CFA route at the ROTATE_CASES geometries of one 24 MP RGGB plane."""
+    from imagepipe_tpu_torch.kernels import rotate as krot
+    from imagepipe_tpu_torch.raw import CFA
+
+    _, height, width = ROTATE_SOURCE
+    gen = torch.Generator(device=device).manual_seed(7)
+    src = torch.rand((1, height, width), generator=gen, device=device, dtype=torch.float32)
+    cfa = CFA("RGGB")
+    out = {}
+    for label, rotation, crop in ROTATE_CASES:
+        geometry = rotatecrop_geometry(rotation, crop, width, height)
+        tl, tr, bl, nw, nh = geometry
+        fn = lambda: krot.rotate_resample_cfa(src, width, height, tl, tr, bl, nw, nh, cfa)
+        name = f"rotate_cfa [1, {height}, {width}] RGGB {label} -> 4 x {nw}x{nh}"
+        out[name] = _entry([fn], fn, rotate_bound(1, height, width, geometry, device, 4), device)
+    del src
+    torch.cuda.empty_cache()
+    return out
 
 
 def suffix_segment(device, bits=8, orientation="Normal", mono=False, exposure=0.3):
@@ -518,7 +548,7 @@ def main() -> int:
     ap.add_argument("--json", help="also write the result line to this file")
     ap.add_argument("--kernels", default="develop,rotate",
                     help="comma-separated: develop (the develop and scaled kernels), rotate, "
-                         "suffix")
+                         "rotate_cfa, suffix")
     ap.add_argument("--rotate-tile-h", default="",
                     help="comma-separated staged tile heights to time the rotate kernel at too")
     args = ap.parse_args()
@@ -545,6 +575,8 @@ def main() -> int:
     if "rotate" in kernels:
         tile_hs = [int(v) for v in args.rotate_tile_h.split(",") if v]
         result["times"].update(rotate_times(device, tile_hs))
+    if "rotate_cfa" in kernels:
+        result["times"].update(rotate_cfa_times(device))
     if "suffix" in kernels:
         result["times"].update(suffix_times(device))
     for k, v in result["times"].items():

@@ -226,12 +226,13 @@ def test_cli_on_dng_and_png(tmp_path, bayer_dng, capsys):
 
 
 def test_out_of_slice_entry_points_raise(bayer_dng, tmp_path):
-    """What is still unported raises naming its ROADMAP item: the
-    multi-host engine (A11). The staged path, rotatecrop, the service and
-    the batch engine's width-sharded axis, which raised A5, A9, A10 and A11
-    before they were ported, now run (tests/test_torch_staged.py,
-    test_torch_service.py, test_torch_sp.py): a cache, `run()`, each op's
-    run, a rotation, an edited raster and a spatial=2 engine all develop."""
+    """Every entry point that raised naming its ROADMAP item now runs: the
+    staged path, rotatecrop, the service, the batch engine's width-sharded
+    axis and the multi-host engine, which raised A5, A9, A10 and A11 before
+    they were ported (tests/test_torch_staged.py, test_torch_service.py,
+    test_torch_sp.py, test_torch_multihost.py): a cache, `run()`, each op's
+    run, a rotation, an edited raster, a spatial=2 engine and a multi-host
+    engine on the CPU all develop."""
     from PIL import Image
 
     from imagepipe_tpu_torch.cache import MultiCache
@@ -249,8 +250,11 @@ def test_out_of_slice_entry_points_raise(bayer_dng, tmp_path):
     r.ops.basecurve.exposure = 0.5
     assert r.output_8bit().data.shape == (12, 16, 3)
     assert RenderService(device="cpu").cache.total_bytes == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        MultiHostBatchEngine()
+    # The multi-host engine, single-process: its partition is the whole
+    # list, developed as the batch engine develops it.
+    fleet = MultiHostBatchEngine(devices=["cpu"]).develop_files([bayer_dng])
+    np.testing.assert_array_equal(fleet[0],
+                                  BatchEngine(devices=["cpu"]).develop_files([bayer_dng])[0])
     # The batch engine and its width-sharded axis are ported: spatial=2
     # develops, bit-equal to spatial=1; a device count that does not fill
     # rows of `spatial` is refused.

@@ -248,8 +248,9 @@ def test_host_tables_equal_rotate_plan(theta, w, h, nw, nh, sc, C):
 
 def test_wrapper_checks_and_routes():
     """The wrapper checks its source, takes the plain version for a CPU
-    tensor (no launch counted) and refuses another device; a CFA-aware
-    rotated resample raises on any device but the CPU."""
+    tensor (no launch counted) and refuses another device; so does the
+    CFA route of a CFA-aware rotated resample, which raised before the
+    route was ported."""
     w, h, nw, nh = 30, 20, 24, 18
     tl, tr, bl = _corners(10, w, h, nw, nh)
     src = torch.from_numpy(_data(1, 4, h, w))             # [4, h, w]
@@ -268,9 +269,15 @@ def test_wrapper_checks_and_routes():
         krot.rotate_resample_planar(torch.zeros((9, h, w)), w, h, tl, tr, bl, nw, nh, 9)
     with pytest.raises(ValueError, match="unsupported device"):
         krot.rotate_resample_planar(src.to("meta"), w, h, tl, tr, bl, nw, nh, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="unsupported device"):
         tscaling.transform_buffer_planar(torch.zeros((1, h, w), device="meta"), w, h, tl, tr,
                                          bl, nw, nh, 4, CFA("RGGB"))
+    before = krot.CFA_LAUNCHES
+    plane = src[:1].contiguous()
+    got = tscaling.transform_buffer_planar(plane, w, h, tl, tr, bl, nw, nh, 4, CFA("RGGB"))
+    assert got.shape == (4, nh, nw) and krot.CFA_LAUNCHES == before
+    torch.testing.assert_close(got, krot.rotate_resample_cfa_plain(
+        plane, w, h, tl, tr, bl, nw, nh, CFA("RGGB")), rtol=0, atol=0)
 
 
 CARD_CASES = {

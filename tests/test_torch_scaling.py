@@ -137,15 +137,25 @@ def test_host_index_math_matches_jax():
 
 def test_rotated_geometry_raises():
     """A rotated geometry raised ROADMAP A9 until the rotated resampler was
-    ported; now only its CFA-aware form raises, and only off the CPU
-    (ROADMAP A12). On the CPU the geometry of
+    ported, and its CFA-aware form off the CPU until the kernel's CFA route
+    was (A12). Now only a device that is neither the CPU nor CUDA is
+    refused. On the CPU the geometry of
     tests/test_rotate_pallas.py::test_affine_gather_impl_matches_oracle
-    matches the scalar oracle within that test's 1e-5."""
+    matches the scalar oracle within that test's 1e-5, and the CFA-aware
+    form is the CFA route's plain version."""
     src = np.random.default_rng(3).random((40, 50, 3), dtype=np.float32)
     got = tscaling.transform_buffer(torch.from_numpy(src), 50, 40, (5, 2), (44, 12), (-3, 33),
                                     37, 29, 3)
     want = oracle.transform_buffer(src.ravel(), 50, 40, (5, 2), (44, 12), (-3, 33), 37, 29, 3)
     np.testing.assert_allclose(got.numpy(), want.reshape(29, 37, 3), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="unsupported device"):
         tscaling.transform_buffer(torch.zeros((40, 50, 1), device="meta"), 50, 40, (5, 2),
                                   (44, 12), (-3, 33), 37, 29, 4, cfa=CFA("RGGB"))
+    from imagepipe_tpu_torch.kernels import rotate as krot
+
+    plane = torch.from_numpy(src[..., :1].copy())
+    got = tscaling.transform_buffer(plane, 50, 40, (5, 2), (44, 12), (-3, 33), 37, 29, 4,
+                                    cfa=CFA("RGGB"))
+    want = krot.rotate_resample_cfa_plain(plane.permute(2, 0, 1).contiguous(), 50, 40, (5, 2),
+                                          (44, 12), (-3, 33), 37, 29, CFA("RGGB"))
+    torch.testing.assert_close(got, want.permute(1, 2, 0), rtol=0, atol=0)
