@@ -75,13 +75,21 @@ Phases, each ending in torch.cuda.synchronize():
      route. The CFA route (rotate_resample_cfa, one sensor plane to four
      colour planes) bit for bit against its plain version, one launch each:
      a [1, 4000, 6000] plane with the RGGB and the X-Trans CFA rotated 0.05
-     with crop_left 0.05, the same with NaN and +-Inf planted, and outputs
-     1 wide and 1 high;
+     with crop_left 0.05, rotated 0.5 (45 degrees) and rotated 0.05 with a
+     x2 downscale, the same at 0.05 and 45 degrees with NaN and +-Inf
+     planted, the 5999x3999 stage (RGGB) at 0.05, all in the route's staged
+     form, and outputs 1 wide and 1 high in its direct form (counted in
+     CFA_DIRECT_LAUNCHES), among them phase 2f's launch, a [1, 16000, 1500]
+     plane to a 1x10 output, with and without NaN and +-Inf planted;
   2f. the CFA route's path: a 1500x16000 (24 MP) Bayer strip DNG rendered
      staged (Pipeline(device="cuda").output_8bit with a cache) at maxwidth
      1: its scaled demosaic to a 1x10 stage is the CFA-aware rotated
-     resample. It must launch the CFA route once, no develop or per-channel
-     rotate kernel, and agree with the same render on the CPU;
+     resample. It must launch the CFA route once, in its direct form (the
+     1x10 output's tables hold inf), no develop or per-channel rotate
+     kernel, and agree with the same render on the CPU; that launch is then
+     timed (device ms back to back, and one call from idle) with its plain
+     version, and its time, plain time and bound are the `rotate_cfa` row
+     of the kernels line;
   1d. the width-sharded develop (develop_sp: one launch of the develop
      kernel per column shard at its global column offset, a 1-column halo
      exchange between the shards, the output assembled on the first
@@ -132,7 +140,9 @@ Phases, each ending in torch.cuda.synchronize():
      requests of phase 2c (first render, exposure edit, rotation edit) to
      host pixels, per-stage (FUSE_SUFFIX = False) and fused in turns; the
      CFA route at the three 24 MP geometries on a [1, 4000, 6000] RGGB
-     plane, its plain version from idle;
+     plane (its direct and staged forms in turns, the staged schedule's
+     stores alone; no main path runs these geometries) and at phase 2f's
+     launch;
   3b. the batch path timed: develop_files throughput of the 16 Bayer files
      (source MP/s, full size and to 1024), its host split (decode, plan,
      staging, dispatch, wait, scatter) and, under torch.profiler, its
@@ -284,7 +294,7 @@ def _plan(raw, bits, device, numerics="auto", maxwidth=0, exposure=0.0):
 def _reset_counts():
     kdev.LAUNCHES = kdev.BATCH_LAUNCHES = kdev.SP_LAUNCHES = 0
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
-    krot.LAUNCHES = krot.DIRECT_LAUNCHES = krot.CFA_LAUNCHES = 0
+    krot.LAUNCHES = krot.DIRECT_LAUNCHES = krot.CFA_LAUNCHES = krot.CFA_DIRECT_LAUNCHES = 0
     ksuf.LAUNCHES = 0
 
 
@@ -1296,72 +1306,113 @@ def phase1c(device, bayer) -> float:
     return worst
 
 
-def _check_rotate_cfa(label, src, geometry, cfa) -> float:
+def _check_rotate_cfa(label, src, geometry, cfa, direct) -> float:
     """The rotate kernel's CFA route against its plain version on the
     sensor plane `src` [1, H, W]: bit-equal (floats to the bit where not
-    NaN, NaN at the same places), one CFA launch on the card; returns max
-    |diff| (0 expected)."""
+    NaN, NaN at the same places), one CFA launch on the card, `direct` (0
+    or 1) of them in the direct form; returns max |diff| (0 expected)."""
     _, h, w = src.shape
     tl, tr, bl, nw, nh = geometry
-    before = krot.CFA_LAUNCHES
+    before, before_direct = krot.CFA_LAUNCHES, krot.CFA_DIRECT_LAUNCHES
     got = krot.rotate_resample_cfa(src, w, h, tl, tr, bl, nw, nh, cfa)
     launched = krot.CFA_LAUNCHES - before
+    routed = krot.CFA_DIRECT_LAUNCHES - before_direct
     want = krot.rotate_resample_cfa_plain(src, w, h, tl, tr, bl, nw, nh, cfa)
     _sync(src.device)
     same, maxd = _same_bits(got, want)
-    print(f"  CFA {label}: [1, {h}, {w}] -> [4, {nh}, {nw}], "
+    form = ("plain version" if src.device.type != "cuda"
+            else "direct form" if routed else "staged form")
+    print(f"  CFA {label}: [1, {h}, {w}] -> [4, {nh}, {nw}], {form}, "
           f"{'bit-equal' if same else 'DIFFERS'} (max |diff| {maxd}; "
           f"{int(torch.isnan(got).sum())} NaN, {int((got == 0).sum())} zeros of {got.numel()})")
     if not same:
         raise AssertionError(f"CFA {label}: differs from the plain version (max |diff| {maxd})")
-    if src.device.type == "cuda" and launched != 1:
-        raise AssertionError(f"CFA {label}: {launched} CFA-route launches, want 1")
+    if src.device.type == "cuda" and (launched, routed) != (1, direct):
+        raise AssertionError(f"CFA {label}: {launched} CFA-route launches, {routed} in the "
+                             f"direct form; want 1 and {direct}")
     return maxd
 
 
 def phase1c_cfa(device, bayer) -> float:
-    """The rotate kernel's CFA route vs its plain version, bit for bit: a
-    24 MP sensor plane with the RGGB and the X-Trans CFA rotated 0.05 with
-    crop_left 0.05, the same with NaN and +-Inf planted, and outputs 1
-    wide and 1 high. Returns the largest |diff|."""
+    """The rotate kernel's CFA route vs its plain version, bit for bit, and
+    the form each case takes: a 24 MP sensor plane with the RGGB and the
+    X-Trans CFA rotated 0.05 with crop_left 0.05, rotated 0.5 (45 degrees)
+    and with a x2 downscale, the same at 0.05 and 45 degrees with NaN and
+    +-Inf planted, the 5999x3999 stage (4-byte copies) at 0.05 (staged
+    form); outputs 1 wide and 1 high (direct form), phase 2f's launch among
+    them, with and without NaN and +-Inf. Returns the largest |diff|."""
     width, height = bayer
     geometry = tdk.rotatecrop_geometry(0.05, 0.05, width, height)
+    tl, tr, bl, nw, nh = geometry
     src = _rotate_source(device, (1, height, width), 11)
     bad = _plant_nonfinite(src.clone(), 12)
     small = _rotate_source(device, (1, 100, 100), 13)
     worst = 0.0
     for label, name in CFA_NAMES:
         cfa = traw.CFA(name)
-        worst = max(worst, _check_rotate_cfa(f"{label} rotation 0.05, crop_left 0.05", src,
-                                             geometry, cfa))
-        worst = max(worst, _check_rotate_cfa(
-            f"{label} rotation 0.05, crop_left 0.05, {ROTATE_NONFINITE} each of NaN, +Inf, "
-            f"-Inf planted", bad, geometry, cfa))
+        for case, plane, g in (
+                ("rotation 0.05, crop_left 0.05", src, geometry),
+                ("rotation 0.5 (45 degrees)", src,
+                 tdk.rotatecrop_geometry(0.5, 0.0, width, height)),
+                ("rotation 0.05, x2 downscale", src, (tl, tr, bl, nw // 2, nh // 2)),
+                (f"rotation 0.05, crop_left 0.05, {ROTATE_NONFINITE} each of NaN, +Inf, -Inf "
+                 f"planted", bad, geometry),
+                (f"rotation 0.5 (45 degrees), {ROTATE_NONFINITE} each of NaN, +Inf, -Inf "
+                 f"planted", bad, tdk.rotatecrop_geometry(0.5, 0.0, width, height))):
+            worst = max(worst, _check_rotate_cfa(f"{label} {case}", plane, g, cfa, direct=0))
         for case, small_geometry in (("output 1 wide", ((0, 0), (99, 10), (-10, 99), 1, 50)),
                                      ("output 1 high", ((0, 0), (99, 10), (-10, 99), 50, 1))):
-            worst = max(worst, _check_rotate_cfa(f"{label} {case}", small, small_geometry, cfa))
-    del src, bad, small
+            worst = max(worst, _check_rotate_cfa(f"{label} {case}", small, small_geometry, cfa,
+                                                 direct=1))
+    # The first render's demosaic stage is 5999 x 3999: rows of an odd
+    # width take the staged form's 4-byte copies.
+    odd = src[:, :height - 1, :width - 1].contiguous()
+    worst = max(worst, _check_rotate_cfa(
+        "RGGB rotation 0.05, crop_left 0.05, odd width", odd,
+        tdk.rotatecrop_geometry(0.05, 0.05, width - 1, height - 1), traw.CFA("RGGB"), direct=0))
+    # Phase 2f's launch: every pixel's centre is NaN, so the direct form
+    # writes zeros without a walk, whatever the plane holds.
+    sw, sh, *strip = tdk.CFA_STRIP_CASE
+    del src, bad
+    plane = _rotate_source(device, (1, sh, sw), 15)
+    for case, p in (("", plane), (f", {ROTATE_NONFINITE} each of NaN, +Inf, -Inf planted",
+                                  _plant_nonfinite(plane.clone(), 16))):
+        worst = max(worst, _check_rotate_cfa(f"RGGB phase 2f's strip{case}", p, strip,
+                                             traw.CFA("RGGB"), direct=1))
+    del small, odd, plane, p
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return worst
 
 
-def phase2f(device) -> int:
+def phase2f(device, card) -> tuple[int, dict]:
     """The CFA route's main path: a staged render (Pipeline.output_8bit
     with a cache) of a 24 MP vertical strip at maxwidth 1, whose scaled
     demosaic to a 1-px-wide stage is the CFA-aware rotated resample. It must
     launch the CFA route once and the other resample and develop kernels
     never, and agree with the same render on the CPU. Returns the CFA
-    route's launches."""
+    route's launches and that launch's timing (device ms, plain ms, bound)."""
+    calls = []
+    wrapper = krot.rotate_resample_cfa
+
+    def recorded(*args):          # the main path's CFA call, to time it below
+        calls.append(args)
+        return wrapper(*args)
+
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "strip.dng")
         dng.write_dng(path, traw.synthetic_bayer(*STRIP, seed=14))
         pipe = ipt.Pipeline.new_from_file(path, device)
         pipe.globals.settings.maxwidth = 1
-        _reset_counts()
-        img = pipe.output_8bit(MultiCache(EDIT_CACHE_BYTES)).data
-        _sync(device)
-        counts = _counts()
+        krot.rotate_resample_cfa = recorded
+        try:
+            _reset_counts()
+            img = pipe.output_8bit(MultiCache(EDIT_CACHE_BYTES)).data
+            _sync(device)
+            counts = _counts()
+            direct = krot.CFA_DIRECT_LAUNCHES
+        finally:
+            krot.rotate_resample_cfa = wrapper
         cpu = ipt.Pipeline.new_from_file(path, "cpu")
         cpu.globals.settings.maxwidth = 1
         want = cpu.output_8bit(MultiCache(EDIT_CACHE_BYTES)).data
@@ -1369,12 +1420,28 @@ def phase2f(device) -> int:
           f"{img.shape}, demosaic stage {pipe.globals.settings.demosaic_width}x"
           f"{pipe.globals.settings.demosaic_height}; launches {counts}")
     stray = {k: v for k, v in counts.items() if v and k not in ("rotate_cfa", "suffix")}
-    if device.type == "cuda" and (counts["rotate_cfa"] != 1 or stray):
-        raise AssertionError(f"staged 1-px-wide render: launches {counts}, want rotate_cfa 1")
+    if device.type == "cuda" and (counts["rotate_cfa"] != 1 or direct != 1 or stray):
+        raise AssertionError(f"staged 1-px-wide render: launches {counts}, {direct} in the CFA "
+                             f"route's direct form; want rotate_cfa 1, in the direct form")
     if img.shape != (STRIP[1] // STRIP[0], 1, 3):
         raise AssertionError(f"staged 1-px-wide render: shape {img.shape}")
     _check("staged 1-px-wide render, card vs CPU", img, want)
-    return counts["rotate_cfa"]
+    if device.type != "cuda" or len(calls) != 1:
+        return counts["rotate_cfa"], {}
+    src, w, h, tl, tr, bl, nw, nh, cfa = calls[0]
+    if (w, h, tl, tr, bl, nw, nh) != tdk.CFA_STRIP_CASE:
+        raise AssertionError(f"phase 2f's CFA call {(w, h, tl, tr, bl, nw, nh)} is not the "
+                             f"timing script's CFA_STRIP_CASE {tdk.CFA_STRIP_CASE}")
+    fn = lambda: wrapper(*calls[0])
+    t = tdk.device_ms([fn], device)
+    t["from_idle_ms"] = tdk.from_idle_ms(fn, device)
+    t["bound_ms"], t["bound_by"] = tdk.rotate_bound(1, h, w, (tl, tr, bl, nw, nh), device, 4)
+    _show(f"its CFA launch, direct form, [1, {h}, {w}] -> [4, {nh}, {nw}]", t, card)
+    pms = _plain_ms(lambda: krot.rotate_resample_cfa_plain(src, w, h, tl, tr, bl, nw, nh, cfa),
+                    device)
+    print(f"    plain {pms:.4f} ms one call from idle")
+    return counts["rotate_cfa"], _timing("rotate_cfa", t["ms"], pms, (t["bound_ms"],
+                                                                       t["bound_by"]))
 
 
 def _suffix_inputs(device, shape, seed) -> list:
@@ -1608,20 +1675,11 @@ def phase3c(device, bayer, card) -> dict:
     del src
     torch.cuda.empty_cache()
 
-    # The CFA route at the same geometries on a 24 MP RGGB sensor plane.
-    ct = tdk.rotate_cfa_times(device)
-    src = _rotate_source(device, (1, height, width), 7)
-    tl, tr, bl, nw, nh = tdk.rotatecrop_geometry(*ROTATE_CASES[0][1:], width, height)
-    cfa = traw.CFA("RGGB")
-    pms = _plain_ms(lambda: krot.rotate_resample_cfa_plain(src, width, height, tl, tr, bl, nw, nh,
-                                                           cfa), device)
-    for label, t in ct.items():
+    # The CFA route at phase 2f's launch and, in both forms, at the same
+    # geometries on a 24 MP RGGB sensor plane (the kernels line's row is
+    # phase 2f's: no main path runs these geometries).
+    for label, t in tdk.rotate_cfa_times(device).items():
         _show(label, t, card)
-    main = next(iter(ct))
-    print(f"  {main}: plain version {pms:.4f} ms one call from idle")
-    times.update(_timing("rotate_cfa", ct[main]["ms"], pms,
-                         (ct[main]["bound_ms"], ct[main]["bound_by"])))
-    del src
     torch.cuda.empty_cache()
 
     st = tdk.suffix_times(device)
@@ -1743,7 +1801,7 @@ def main() -> int:
     print("phase 2c: the staged edit path, RenderService")
     rotate_launches, suffix_launches = phase2c(device, BAYER, card)
     print("phase 2f: the CFA route's path, a staged scaled demosaic to a 1-px-wide stage")
-    cfa_launches = phase2f(device)
+    cfa_launches, cfa_times = phase2f(device, card)
     with tempfile.TemporaryDirectory() as td:
         paths, corrupt = _batch_files(td, bayer_bases, xtrans_bases)
         print("phase 2b: the batch path, BatchEngine.develop_files")
@@ -1759,7 +1817,7 @@ def main() -> int:
                       **batch_counts)
         print("phase 3: timing")
         times = phase3(device, BAYER, card)
-        times.update(phase3c(device, BAYER, card))
+        times.update(phase3c(device, BAYER, card), **cfa_times)
         print("phase 3b: timing the batch path")
         bayer_paths = [p for p in paths[:17] if p != paths[corrupt]]
         batch_times, single_mps = phase3b(device, bayer_paths, bayer_bases, card)

@@ -177,7 +177,8 @@ def _library():
         lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, i, p, p, i,
                                                i, i, p, p]
         lib.rotate_cfa_launch.restype = i
-        lib.rotate_cfa_launch.argtypes = [p, i, i, p, p, i, i, f, f, i, i, p, i, p, p]
+        lib.rotate_cfa_launch.argtypes = [p, i, i, p, p, i, i, f, f, i, i, p, i, i, p, p, i,
+                                          i, i, p, p]
         lib.suffix_launch.restype = i
         lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, p]
         _lib = lib

@@ -27,13 +27,22 @@ launch of csrc/rotate.cu, which replaces the Pallas `_rotate_kernel`.
   plane [1, H, W] in, four colour planes [4, nh, nw] out, each sample
   counted in its colour of the CFA's pattern tile. It is the CFA mode of
   the JAX package's `scaling._transform_impl` (an XLA gather there), and
-  launches csrc/rotate.cu's CFA route (`rotate_kernel_cfa`, a thread per
-  pixel walking its full window); its plain version is
-  `rotate_resample_cfa_plain`. The CPU and other devices are routed as
-  above.
+  launches csrc/rotate.cu's CFA route in one of two forms, chosen by
+  `rotate_tile_plan(g, 1, H, W, cfa=True)`: staged (the staged route's
+  machinery on one plane, in tiles of CFA_TILE_COLS columns, each
+  sample's colour from the pattern tile in shared memory at a phase taken
+  from the box origin) or direct (`rotate_kernel_cfa`, a thread per pixel
+  walking its full window from device memory) for non-finite tables or a
+  box too large. On the direct form a pixel whose window centre is NaN
+  (every pixel of an output 1 wide or high) writes zeros without a walk,
+  its bits whatever the source holds (csrc/rotate.cu's header gives the
+  argument). Its plain version is `rotate_resample_cfa_plain`. The CPU and
+  other devices are routed as above; `cfa_launch` is the launch itself,
+  for a given plan.
 * `LAUNCHES` counts the kernel's launches, `DIRECT_LAUNCHES` those on the
-  direct route, `CFA_LAUNCHES` the CFA route's. The library is built and
-  bound by kernels/develop.py, with the develop kernels.
+  direct route, `CFA_LAUNCHES` the CFA route's and `CFA_DIRECT_LAUNCHES`
+  those of its direct form. The library is built and bound by
+  kernels/develop.py, with the develop kernels.
 
 Numerics: every operation of the kernel is an explicit round-to-nearest
 intrinsic in the plain version's order, so the two agree bit for bit
@@ -51,20 +60,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..raw import PATTERN_TILE
 from ..scaling import RotatedGeometry, _transform_rotated, rotated_geometry, sat_floor_np
 from . import develop as kdev
 
 __all__ = ["rotate_resample_planar", "rotate_resample_plain", "rotate_resample_cfa",
            "rotate_resample_cfa_plain", "rotate_tile_plan", "tile_boxes", "RotateTilePlan",
-           "check_source", "LAUNCHES", "DIRECT_LAUNCHES", "CFA_LAUNCHES", "MAX_COMPONENTS",
-           "MAX_ABS_DIFF", "TILE_W", "TILE_H", "STAGE_SMEM_BYTES"]
+           "check_source", "LAUNCHES", "DIRECT_LAUNCHES", "CFA_LAUNCHES", "CFA_DIRECT_LAUNCHES",
+           "MAX_COMPONENTS", "MAX_ABS_DIFF", "TILE_W", "TILE_H", "CFA_TILE_COLS", "CFA_ROUTES",
+           "STAGE_SMEM_BYTES"]
 
 # Kernel launches by `rotate_resample_planar` since import (or since a caller
 # reset it to 0), and those of them on the direct route; launches of the CFA
-# route by `rotate_resample_cfa`.
+# route by `rotate_resample_cfa`, and those of them in its direct form.
 LAUNCHES = 0
 DIRECT_LAUNCHES = 0
 CFA_LAUNCHES = 0
+CFA_DIRECT_LAUNCHES = 0
 
 # Largest channel count the kernel takes (the Pallas kernel's limit).
 MAX_COMPONENTS = 8
@@ -77,6 +89,15 @@ MAX_ABS_DIFF = 2e-6
 # (a multiple of the block's 8 warps).
 TILE_W = 32
 TILE_H = 32
+# The CFA route's staged tile: CFA_TILE_COLS output columns (csrc/rotate.cu
+# kTileCols<true>; a warp walks each group of TILE_W) by TILE_H rows.
+# Wider than TILE_W, fewer of the output's 32-byte sectors are written in
+# two parts by two blocks (PERF.md).
+CFA_TILE_COLS = 3 * TILE_W
+# `cfa_launch`'s route codes: a plan's route, and "stores", the staged
+# form's stores alone (every output written as zeros, nothing staged or
+# walked), a probe that only scripts/time_develop_kernels.py launches.
+CFA_ROUTES = {"direct": 0, "staged": 1, "stores": 2}
 # Most shared memory a staged block may use: all a Hopper block can have.
 STAGE_SMEM_BYTES = kdev.MAX_SMEM
 
@@ -87,13 +108,14 @@ class RotateTilePlan:
 
     row_bands [8, nrb] float32: per band of `tile_h` output rows, the min
     of rows[0..3] of rotated_geometry, then their max; col_bands [8, ncb]
-    the same over cols[0..3] per band of TILE_W output columns (None where
-    a table holds a non-finite value). box_bound (height, width): a bound
+    the same over cols[0..3] per band of TILE_W output columns (CFA route:
+    CFA_TILE_COLS) (None where a table holds a non-finite value). box_bound (height, width): a bound
     on every tile's box; box_floats: one box buffer, its C planes with 6
     columns more (the 16-byte copies widen a box to multiples of 4 floats
     from a multiple of 4), rounded up to 4 floats. smem_bytes: a staged
     block's shared memory, two buffers, each of a tile's row and column
-    terms (6 x (tile_h + TILE_W)) and a box."""
+    terms (6 x (tile_h + tile columns)) and a box, and on the CFA route the
+    pattern tile."""
     route: str                       # "staged" or "direct"
     reason: str
     tile_h: int
@@ -126,25 +148,29 @@ def _extent_bound(row_bands, col_bands, i, k, size) -> int:
 
 
 def rotate_tile_plan(g: RotatedGeometry, components: int, height: int, width: int,
-                     tile_h: int | None = None) -> RotateTilePlan:
+                     tile_h: int | None = None, cfa: bool = False) -> RotateTilePlan:
     """The route of csrc/rotate.cu for geometry `g` on a [components, height,
     width] source, and the staged route's band tables and shared memory
-    (see RotateTilePlan). The tile is the tallest of `tile_h` (TILE_H by
-    default), its half, ... down to 8 rows whose block fits
-    STAGE_SMEM_BYTES. Its cost is linear in the output's height and width."""
+    (see RotateTilePlan); `cfa`: the CFA route's (components 1). The tile is
+    the tallest of `tile_h` (TILE_H by default), its half, ... down to 8
+    rows whose block fits STAGE_SMEM_BYTES. Its cost is linear in the
+    output's height and width."""
     tile_h = TILE_H if tile_h is None else int(tile_h)
     if tile_h <= 0 or tile_h % 8:
         raise ValueError(f"rotate tile plan: tile height {tile_h}, want a multiple of 8")
     if not (np.isfinite(g.rows).all() and np.isfinite(g.cols).all()):
         return RotateTilePlan("direct", "a geometry table holds a non-finite value", tile_h,
                               None, None, (0, 0), 0, 0)
-    col_bands = _bands(g.cols[:4], TILE_W)
+    tile_cols = CFA_TILE_COLS if cfa else TILE_W
+    col_bands = _bands(g.cols[:4], tile_cols)
     while True:
         row_bands = _bands(g.rows[:4], tile_h)
         box = (_extent_bound(row_bands, col_bands, 0, g.k_y, height),
                _extent_bound(row_bands, col_bands, 2, g.k_x, width))
         box_floats = -(-components * box[0] * (box[1] + 6) // 4) * 4
-        smem = 4 * 2 * (6 * (tile_h + TILE_W) + box_floats)
+        smem = 4 * 2 * (6 * (tile_h + tile_cols) + box_floats)
+        if cfa:
+            smem += PATTERN_TILE * PATTERN_TILE
         if smem <= STAGE_SMEM_BYTES or tile_h % 16:
             break
         tile_h //= 2
@@ -260,20 +286,38 @@ def rotate_resample_cfa(src: torch.Tensor, width, height, topleft, topright,
     if src.device.type != "cuda":
         raise ValueError(f"rotate kernel: unsupported device {src.device}")
     g = rotated_geometry(width, height, topleft, topright, bottomleft, nwidth, nheight)
+    return cfa_launch(src, g, rotate_tile_plan(g, 1, height, width, cfa=True), cfa)
+
+
+def cfa_launch(src: torch.Tensor, g: RotatedGeometry, plan: RotateTilePlan, cfa) -> torch.Tensor:
+    """One launch of the CFA route on the CUDA plane `src` [1, H, W] with
+    geometry `g`, in the form `plan.route` names (a route of CFA_ROUTES;
+    the plan of `rotate_tile_plan(g, 1, H, W, cfa=True)`).
+    `rotate_resample_cfa` is the entry point."""
+    _, height, width = src.shape
+    nheight, nwidth = g.rows.shape[1], g.cols.shape[1]
+    route = CFA_ROUTES[plan.route]
+    staged = route != 0
     tile = np.ascontiguousarray(cfa.pattern_tile(), dtype=np.uint8)     # [48, 48]
-    terms = np.concatenate([g.rows.ravel(), g.cols.ravel()])
-    tables = kdev.upload(np.concatenate([terms.view(np.uint8), tile.ravel()]), src.device)
-    base = tables.data_ptr()
+    parts = [g.rows.ravel(), g.cols.ravel()]
+    if staged:
+        parts += [plan.row_bands.ravel(), plan.col_bands.ravel()]
+    floats = np.concatenate(parts)
+    tables = kdev.upload(np.concatenate([floats.view(np.uint8), tile.ravel()]), src.device)
+    offsets = np.cumsum([0] + [p.size for p in parts]) * 4 + tables.data_ptr()
     out = torch.empty((4, nheight, nwidth), dtype=torch.float32, device=src.device)
     lib = kdev._library()
     stream = torch.cuda.current_stream(src.device).cuda_stream
+    vec4 = width % 4 == 0 and src.data_ptr() % 16 == 0
     with torch.cuda.device(src.device):
         rc = lib.rotate_cfa_launch(
-            src.data_ptr(), height, width, base, base + 4 * g.rows.size, nheight, nwidth,
-            float(g.sxx), float(g.syy), g.k_x, g.k_y, base + terms.nbytes, tile.shape[0],
-            out.data_ptr(), stream)
+            src.data_ptr(), height, width, int(offsets[0]), int(offsets[1]), nheight, nwidth,
+            float(g.sxx), float(g.syy), g.k_x, g.k_y, int(offsets[-1]), tile.shape[0], route,
+            int(offsets[2]) if staged else None, int(offsets[3]) if staged else None,
+            plan.tile_h, plan.box_floats if staged else 0, int(vec4), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"rotate kernel (CFA route) launch failed: cudaError {rc}")
-    global CFA_LAUNCHES
+    global CFA_LAUNCHES, CFA_DIRECT_LAUNCHES
     CFA_LAUNCHES += 1
+    CFA_DIRECT_LAUNCHES += not staged
     return out

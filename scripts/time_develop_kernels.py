@@ -25,7 +25,11 @@ versions that have it) for each segment start at the two 24 MP frames of
 `--kernels rotate_cfa` times the rotate kernel's CFA route
 (`kernels.rotate.rotate_resample_cfa`, in versions that have it) on one
 [1, 4000, 6000] float32 sensor plane (RGGB) at the three rotatecrop
-geometries of `ROTATE_CASES`.
+geometries of `ROTATE_CASES`, and at the launch of chip_smoke.py's phase
+2f (`CFA_STRIP_CASE`, a [1, 16000, 1500] plane to a 1 x 10 output); where
+the version has the route's staged form, also its direct form and its
+staged form in turns, and the staged schedule's stores alone at the
+output's width and at the next multiple of 8 (`rotate_cfa_times`).
 
 What it measures, on the card it names (`nvidia-smi` name and power limit):
 
@@ -131,6 +135,11 @@ ROTATE_SOURCE = (4, 4000, 6000)
 ROTATE_CASES = (("rotation 0.05, crop_left 0.05", 0.05, 0.05),
                 ("rotation 0.1, crop_left 0.05", 0.1, 0.05),
                 ("rotation 0.5 (45 degrees)", 0.5, 0.0))
+# The CFA route's launch on the staged render of a 1500 x 16000 (24 MP)
+# Bayer strip at maxwidth 1 (chip_smoke.py phase 2f): its scaled demosaic
+# to a 1 x 10 stage, (width, height, topleft, topright, bottomleft, nwidth,
+# nheight).
+CFA_STRIP_CASE = (1500, 16000, (0, 0), (1499, 0), (0, 15999), 1, 10)
 
 
 # The suffix kernel: the staged edit path's two 24 MP frames (unrotated,
@@ -150,8 +159,9 @@ OPS_QUANT = {8: 9, 16: 18}
 
 # Opcodes counted in each kernel's SASS: special-function unit calls
 # (MUFU.RCP of a division, MUFU.LG2/EX2 of logf/expf), the division's
-# range check, branches, and global and shared memory accesses.
-SASS_OPCODES = ("MUFU", "FCHK", "BRA", "LDG", "STG", "LDS", "STS", "BAR")
+# range check, branches, global and shared memory accesses, and the local
+# memory accesses of spilled registers.
+SASS_OPCODES = ("MUFU", "FCHK", "BRA", "LDG", "STG", "LDS", "STS", "LDL", "STL", "BAR")
 
 
 def card() -> str:
@@ -198,62 +208,113 @@ def rotatecrop_geometry(rotation, crop_left, width, height):
     return op.geometry(width, height)
 
 
-def rotate_windows(height, width, geometry, device) -> tuple[int, int, int]:
-    """(window columns, window rows, samples) summed over the output's
-    pixels: min(K, to - from + 1) per axis, 0 for an empty window."""
+def rotate_windows(height, width, geometry, device) -> tuple[int, int, int, int]:
+    """(window columns, window rows, samples, live pixels) summed over the
+    output's pixels: min(K, to - from + 1) per axis, 0 for an empty window
+    and for a pixel whose centre is NaN (its output is 0 whatever the
+    source holds: csrc/rotate.cu (h)); live pixels have no NaN centre."""
     from imagepipe_tpu_torch.scaling import rotated_geometry
 
     tl, tr, bl, nw, nh = geometry
     g = rotated_geometry(width, height, tl, tr, bl, nw, nh)
     rows, cols = torch.from_numpy(g.rows).to(device), torch.from_numpy(g.cols).to(device)
-    cols_total = rows_total = samples = 0
+    cols_total = rows_total = samples = live = 0
     for r0 in range(0, nh, 512):                 # bands of rows bound the memory
+        def term(i):
+            return rows[i, r0:r0 + 512, None] + cols[i, None, :]
+
         def idx(i, maxv):
-            v = torch.nan_to_num(rows[i, r0:r0 + 512, None] + cols[i, None, :], nan=0.0)
+            v = torch.nan_to_num(term(i), nan=0.0)
             return torch.clamp(torch.floor(v), 0, maxv).to(torch.int64)
 
+        alive = ~(torch.isnan(term(4)) | torch.isnan(term(5)))
         ny = torch.clamp(torch.clamp(idx(1, height - 1) - idx(0, height - 1) + 1, max=g.k_y),
-                         min=0)
+                         min=0) * alive
         nx = torch.clamp(torch.clamp(idx(3, width - 1) - idx(2, width - 1) + 1, max=g.k_x),
-                         min=0)
+                         min=0) * alive
         cols_total += int(nx.sum())
         rows_total += int(ny.sum())
         samples += int((nx * ny).sum())
-    return cols_total, rows_total, samples
+        live += int(alive.sum())
+    return cols_total, rows_total, samples, live
 
 
 def rotate_bound(channels, height, width, geometry, device,
                  out_channels=None) -> tuple[float, str]:
-    """The rotate kernel's bound: the source's `channels` planes read once,
-    the output's `out_channels` planes (default `channels`; 4 for the CFA
-    route's one sensor plane) written once, and the operations of the
-    samples of each pixel's valid window."""
+    """The rotate kernel's bound: the source's `channels` planes read once
+    (not at all where every pixel's centre is NaN), the output's
+    `out_channels` planes (default `channels`; 4 for the CFA route's one
+    sensor plane) written once, and the operations of the samples of each
+    live pixel's valid window."""
     out_channels = channels if out_channels is None else out_channels
     nw, nh = geometry[3], geometry[4]
-    wcols, wrows, samples = rotate_windows(height, width, geometry, device)
+    wcols, wrows, samples, live = rotate_windows(height, width, geometry, device)
     ops = (wcols * OPS_ROTATE_COLUMN + wrows * OPS_ROTATE_ROW
            + samples * (OPS_ROTATE_SAMPLE + 2 * channels)
-           + nh * nw * (OPS_ROTATE_PIXEL + out_channels))
-    return roofline(channels * height * width * 4, out_channels * nh * nw * 4, ops)
+           + live * (OPS_ROTATE_PIXEL + out_channels))
+    return roofline(channels * height * width * 4 if live else 0, out_channels * nh * nw * 4,
+                    ops)
 
 
 def rotate_cfa_times(device) -> dict:
     """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by}} for
-    the CFA route at the ROTATE_CASES geometries of one 24 MP RGGB plane."""
+    the CFA route at the ROTATE_CASES geometries of one 24 MP RGGB plane
+    and at CFA_STRIP_CASE, through its entry point; in versions with a
+    staged form (`kernels.rotate.cfa_launch`) also each form alone at the
+    ROTATE_CASES, the direct form and the staged form timed in turns
+    (direct, staged, staged, direct; ms the mean of each form's two
+    medians), and the stores alone (route "stores": the staged schedule
+    writing every output as zeros) at the geometry's output width and at
+    the next multiple of 8 (rows that start on a 32-byte sector)."""
+    import dataclasses
+
     from imagepipe_tpu_torch.kernels import rotate as krot
     from imagepipe_tpu_torch.raw import CFA
+    from imagepipe_tpu_torch.scaling import rotated_geometry
 
     _, height, width = ROTATE_SOURCE
     gen = torch.Generator(device=device).manual_seed(7)
     src = torch.rand((1, height, width), generator=gen, device=device, dtype=torch.float32)
     cfa = CFA("RGGB")
     out = {}
+    w, h, *strip = CFA_STRIP_CASE
+    plane = torch.rand((1, h, w), generator=gen, device=device, dtype=torch.float32)
+    fn = lambda: krot.rotate_resample_cfa(plane, w, h, *strip, cfa)
+    out[f"rotate_cfa [1, {h}, {w}] RGGB -> 4 x {strip[3]}x{strip[4]} (chip_smoke phase 2f)"] = (
+        _entry([fn], fn, rotate_bound(1, h, w, strip, device, 4), device))
+    del plane
     for label, rotation, crop in ROTATE_CASES:
         geometry = rotatecrop_geometry(rotation, crop, width, height)
         tl, tr, bl, nw, nh = geometry
         fn = lambda: krot.rotate_resample_cfa(src, width, height, tl, tr, bl, nw, nh, cfa)
         name = f"rotate_cfa [1, {height}, {width}] RGGB {label} -> 4 x {nw}x{nh}"
-        out[name] = _entry([fn], fn, rotate_bound(1, height, width, geometry, device, 4), device)
+        bound = rotate_bound(1, height, width, geometry, device, 4)
+        out[name] = _entry([fn], fn, bound, device)
+        if not hasattr(krot, "cfa_launch"):
+            continue                             # a version with the direct form only
+        g = rotated_geometry(width, height, tl, tr, bl, nw, nh)
+        plan = krot.rotate_tile_plan(g, 1, height, width, cfa=True)
+        forms = {"direct form": dataclasses.replace(plan, route="direct"), "staged form": plan}
+        turns = {form: [] for form in forms}
+        for form in ("direct form", "staged form", "staged form", "direct form"):
+            turns[form].append(device_ms(
+                [lambda p=forms[form]: krot.cfa_launch(src, g, p, cfa)], device))
+        for form, runs in turns.items():
+            launch = lambda p=forms[form]: krot.cfa_launch(src, g, p, cfa)
+            out[f"{name}, {form} (in turns)"] = {
+                "ms": statistics.mean(r["ms"] for r in runs),
+                "runs": [r["ms"] for r in runs],
+                "host_bound": any(r["host_bound"] for r in runs),
+                "from_idle_ms": from_idle_ms(launch, device),
+                "bound_ms": bound[0], "bound_by": bound[1]}
+        if "stores" not in getattr(krot, "CFA_ROUTES", {}):
+            continue                             # a version without the stores probe
+        for w8 in (nw, nw + (-nw) % 8):
+            g8 = rotated_geometry(width, height, tl, tr, bl, w8, nh)
+            p8 = krot.rotate_tile_plan(g8, 1, height, width, cfa=True)
+            probe = lambda: krot.cfa_launch(src, g8, dataclasses.replace(p8, route="stores"), cfa)
+            out[f"{name}, stores alone at {w8}x{nh}"] = _entry(
+                [probe], probe, roofline(0, 4 * nh * w8 * 4, 0), device)
     del src
     torch.cuda.empty_cache()
     return out
