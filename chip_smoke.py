@@ -58,7 +58,25 @@ Phases, each ending in torch.cuda.synchronize():
      shards of each chunk on the one card. Every result must be bit-equal
      to phase 2b's, and the run make exactly 6 shard launches (3 chunks x 2
      shards) and no other; at maxwidth 1024 the thumbnails develop whole
-     (3 launches of develop_scaled_batch only);
+     (3 launches of develop_scaled_batch only). Then the width-sharded
+     eager route (engine.develop_batch_perimage_sp): the same files
+     through BatchEngine(executor="eager") at spatial=2 on one card
+     against spatial=1, at full size, at maxwidth 4000 ('fulldown') and
+     at maxwidth 1024 (eager 'scaled'), and a 24 MP mono DNG at maxwidth
+     4000 ('plaindown') and a 24 MP linear DNG (rgb) with the default
+     executor. Each sharded run must be bit-equal to spatial=1 and launch
+     no kernel (every count 0); the full-size and 1024 results must hold
+     the contract against phase 2b's kernel results. Host walls of both
+     are printed beside the card (no speed claim);
+  2g. the banded eager develop: a 60 MP (9504x6336) Bayer frame in 'lut'
+     numerics through engine.develop_fused with bands=None (3 bands)
+     against bands=1 on the card, bit for bit, two runs of each in turns,
+     each with its peak device memory (torch.cuda.max_memory_allocated)
+     and host wall;
+  2h. a staged output with no pixels: a 98x54 Bayer DNG rendered through
+     Pipeline(device="cuda").output_8bit with a cache at maxwidth 1 must
+     be (0, 1, 3) uint8 and launch no kernel (no rotate, rotate_cfa or
+     suffix launch);
   1c. the rotate kernel against its plain version: [4, 4000, 6000] f32
      (24 MP, as the staged path hands it to rotatecrop) rotated 0.05 with
      crop_left 0.05 (-> 5981x4458), rotated 0.1 with the same crop, rotated
@@ -189,6 +207,7 @@ import torch
 
 import imagepipe_tpu_torch as ipt
 from imagepipe_tpu_torch import dng
+from imagepipe_tpu_torch import engine as tengine
 from imagepipe_tpu_torch import raw as traw
 from imagepipe_tpu_torch.buffer import OpBuffer
 from imagepipe_tpu_torch.cache import MultiCache
@@ -839,6 +858,124 @@ def phase2d(device, paths, corrupt, flat) -> int:
     _develop_files(eng, paths, corrupt, dict(none, develop_scaled_batch=3) if on_card else none,
                    f"develop_files, maxwidth {BATCH_THUMB}, spatial=2 (thumbnails develop whole)")
     return 6
+
+
+def _eager_sp(device, paths, corrupt, label, card, **kw) -> list:
+    """develop_files over `paths` by BatchEngine(devices=[device, device],
+    spatial=2, **kw) and by BatchEngine(devices=[device], **kw), the
+    counts zeroed just before each run and read just after: neither may
+    launch a kernel, and the sharded results must equal the unsharded ones
+    bit for bit. Prints both host walls beside the card; returns the
+    sharded results."""
+    none = {k: 0 for k in _counts()}
+    outs, walls = {}, {}
+    for name, devices, spatial in (("spatial=2", [device, device], 2),
+                                   ("spatial=1", [device], 1)):
+        eng = BatchEngine(devices=devices, spatial=spatial, max_batch=BATCH, **kw)
+        t = time.perf_counter()
+        outs[name] = _develop_files(eng, paths, corrupt, none, f"{label}, {name}")
+        walls[name] = (time.perf_counter() - t) * 1e3
+    for i, (got, want) in enumerate(zip(outs["spatial=2"], outs["spatial=1"])):
+        if i != corrupt and not np.array_equal(got, want):
+            raise AssertionError(f"{label}: {paths[i]} sharded differs from unsharded in "
+                                 f"{int((got != want).sum())} values")
+    print(f"  {label}: the {len(paths) - 1} sharded results are bit-equal to spatial=1's; "
+          f"host walls {walls['spatial=2']:.1f} ms (spatial=2) vs {walls['spatial=1']:.1f} ms "
+          f"(spatial=1) on {card}")
+    return outs["spatial=2"]
+
+
+def _hold_to_kernel(label, outs, kernel_outs, corrupt) -> int:
+    """Each eager result within the contract of the kernel's result for the
+    same file (phase 2b); returns the max |diff|."""
+    worst = 0
+    for i, (got, want) in enumerate(zip(outs, kernel_outs)):
+        if i != corrupt:
+            maxd, frac = kdev.compare(got, want)
+            if maxd > kdev.MAX_LSB or frac >= kdev.MAX_FLIP_FRACTION:
+                raise AssertionError(f"{label}: result {i} max |diff| {maxd}, differing {frac} "
+                                     f"against the kernel's")
+            worst = max(worst, maxd)
+    print(f"  {label}: within the contract of phase 2b's kernel results, max |diff| {worst}")
+    return worst
+
+
+def phase2d_eager(device, paths, corrupt, flat, thumbs, td, bayer, card) -> None:
+    """The width-sharded eager route (engine.develop_batch_perimage_sp) at
+    full width: phase 2b's files through BatchEngine(executor="eager") at
+    full size, at maxwidth 4000 ('fulldown', and 'full' for the Rotate90
+    frames) and at maxwidth BATCH_THUMB (eager 'scaled'); then a mono DNG
+    at maxwidth 4000 ('plaindown') and a linear DNG (rgb), each beside the
+    corrupt file, with the default executor. Every sharded run is
+    bit-equal to spatial=1 and launches no kernel; the full-size and
+    thumbnail results hold the contract against phase 2b's kernels."""
+    full = _eager_sp(device, paths, corrupt, "eager, full size", card, executor="eager")
+    _hold_to_kernel("eager, full size", full, flat, corrupt)
+    del full
+    _eager_sp(device, paths, corrupt, "eager, maxwidth 4000 (fulldown)", card,
+              executor="eager", maxwidth=4000)
+    small = _eager_sp(device, paths, corrupt, f"eager, maxwidth {BATCH_THUMB} (scaled)", card,
+                      executor="eager", maxwidth=BATCH_THUMB)
+    _hold_to_kernel(f"eager, maxwidth {BATCH_THUMB}", small, thumbs, corrupt)
+    for name, make, maxwidth in (("mono", traw.synthetic_mono, 4000),
+                                 ("linear", traw.synthetic_linear, 0)):
+        path = os.path.join(td, f"eager_{name}.dng")
+        dng.write_dng(path, make(*bayer, seed=5))
+        what = f"{name} {bayer[0]}x{bayer[1]}" + (f", maxwidth {maxwidth}" if maxwidth else "")
+        outs = _eager_sp(device, [path, paths[corrupt]], 1, what, card, maxwidth=maxwidth)
+        print(f"  {what}: {outs[0].shape} {outs[0].dtype}")
+
+
+def phase_bands(device, big, card) -> None:
+    """The banded eager develop: a `big` Bayer frame in 'lut' numerics
+    through develop_fused with bands=None (auto_bands) must equal bands=1
+    bit for bit. Two turns of each, in turns; prints each run's peak
+    device memory and host wall."""
+    raw = traw.synthetic_bayer(*big, seed=3)
+    plan = _plan(raw, 8, device, numerics="lut")
+    plane = _upload(raw, device)
+    outs = {}
+    for bands in (None, 1, None, 1):
+        _sync(device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        out = develop_fused(plan, plane, bands=bands)
+        _sync(device)
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        n = tengine.auto_bands(plan) if bands is None else bands
+        print(f"  {big[0]}x{big[1]} Bayer, lut, bands={bands} ({n} band(s)): peak device "
+              f"memory {peak} B, host wall {ms:.1f} ms on {card}")
+        if bands in outs and not torch.equal(out, outs[bands]):
+            raise AssertionError(f"bands={bands}: two runs differ")
+        outs[bands] = out
+        del out
+    if not torch.equal(outs[None], outs[1]):
+        raise AssertionError(f"banded develop differs from bands=1 in "
+                             f"{int((outs[None] != outs[1]).sum())} values")
+    print("  banded develop bit-equal to bands=1")
+
+
+def phase_empty(device, td) -> None:
+    """A staged render whose size rounds to 0: the 98 x 54 Bayer frame at
+    maxwidth 1 through Pipeline(device).output_8bit with a cache must give
+    (0, 1, 3) u8, with the counts zeroed just before and no launch after
+    (the resampler and the fused suffix pass the empty frame through)."""
+    path = os.path.join(td, "tiny.dng")
+    dng.write_dng(path, traw.synthetic_bayer(98, 54, seed=4))
+    pipe = ipt.Pipeline.new_from_file(path, device)
+    pipe.globals.settings.maxwidth = 1
+    _reset_counts()
+    img = pipe.output_8bit(MultiCache(1 << 28))
+    _sync(device)
+    counts = _counts()
+    if img.data.shape != (0, 1, 3) or img.data.dtype != np.uint8:
+        raise AssertionError(f"empty output: {img.data.shape} {img.data.dtype}")
+    if any(counts.values()):
+        raise AssertionError(f"empty output: launches {counts}, want none")
+    print(f"  98x54 at maxwidth 1: {img.data.shape} {img.data.dtype}, launches {counts}")
 
 
 # -- the fleet: MultiHostBatchEngine in spawned ranks sharing the card --------
@@ -1808,6 +1945,13 @@ def main() -> int:
         batch_counts, flat, thumbs = phase2b(device, paths, corrupt)
         print("phase 2d: the width-sharded batch path, BatchEngine(spatial=2).develop_files")
         sp_launches = phase2d(device, paths, corrupt, flat)
+        print("phase 2d (eager): the width-sharded eager route, BatchEngine(spatial=2) vs "
+              "spatial=1")
+        phase2d_eager(device, paths, corrupt, flat, thumbs, td, BAYER, card)
+        print("phase 2g: the banded eager develop, develop_fused(bands=None) vs bands=1")
+        phase_bands(device, BIG, card)
+        print("phase 2h: a staged output with no pixels")
+        phase_empty(device, td)
         print(f"phase 2e: the multi-process feed, {FLEET_RANKS} ranks of MultiHostBatchEngine "
               f"on one card")
         phase2e(device, paths, corrupt, flat, thumbs)

@@ -14,10 +14,13 @@ downscale), 'fulldown' (stencil demosaic, then a 4-plane downscale) and
 'plaindown' (mono and rgb). On CUDA the scaled-demosaic kernel
 (kernels/develop_scaled.py) takes the 'scaled' cfa plans in 'direct'
 numerics, and this engine is the executor of 'fulldown', 'plaindown', rgb
-and 'lut' plans. There is no row banding: it exists for the 16 GB TPU chip
-(engine.py:362-372 of the JAX package). `develop_batch_perimage` develops a
-batch of one shape class with per-image calibration, the batch engine's
-eager executor (parallel/batch.py).
+and 'lut' plans. `develop_fused(plan, plane, bands)` develops a frame over
+30 MP in row bands with 1-row halos, as the JAX package does, bit-equal to
+the unbanded develop and with a lower peak of device memory.
+`develop_batch_perimage` develops a batch of one shape class with per-image
+calibration, the batch engine's eager executor (parallel/batch.py), and
+`develop_batch_perimage_sp` the same batch width-sharded across a row of
+devices.
 """
 
 from __future__ import annotations
@@ -33,12 +36,14 @@ from .kernels.demosaic_full import stencil_demosaic_planes
 from .ops.colorspaces import normalize_wbs
 from .ops.demosaic import minscale_for
 from .ops.gofloat import levels
-from .scaling import calculate_scale, scale_down_planar, scaling_size
+from .scaling import (calculate_scale, scale_down_axes, scale_down_planar, scaling_size,
+                      source_span)
 from .spline import SplineFunc, eval_spline_arrays
 
 __all__ = ["DevelopPlan", "make_develop_plan", "plan_from_jax",
-           "develop_fused", "develop_batch_perimage", "finish_planes",
-           "normalize_plane_np", "planar_to_hwc"]
+           "develop_fused", "auto_bands", "develop_batch_perimage",
+           "develop_batch_perimage_sp", "stage_perimage_sp", "sp_spans",
+           "finish_planes", "normalize_plane_np", "planar_to_hwc"]
 
 _PARAM_KEYS = ("mins", "ranges", "mul", "cmatrix", "rgbmatrix")
 _SPLINE_KEYS = ("spline_xs", "spline_ys", "spline_c1", "spline_c2", "spline_c3")
@@ -282,10 +287,46 @@ def normalize_plane_np(plan: DevelopPlan, plane) -> np.ndarray:
     return plane
 
 
-def develop_fused(plan: DevelopPlan, plane: torch.Tensor) -> torch.Tensor:
+def auto_bands(plan: DevelopPlan) -> int:
+    """The JAX package's band count for `develop_fused(bands=None)`
+    (engine.py:370-374 there): one band per ~24 MP above 30 MP, else 1."""
+    pixels = plan.height * plan.width
+    return pixels // (24_000_000 + 1) + 1 if pixels > 30_000_000 else 1
+
+
+def develop_fused(plan: DevelopPlan, plane: torch.Tensor,
+                  bands: int | None = None) -> torch.Tensor:
     """Develop one sensor plane (a tensor on the plan's device) through the
-    eager chain in the plan's numerics -> quantized planar [3, H', W']."""
-    return _develop_one(plan, normalize_plane(plan, plane), plan.numerics)
+    eager chain in the plan's numerics -> quantized planar [3, H', W'].
+
+    bands: develop a full-size cfa plan in horizontal bands of the crop,
+    each with a 1-row halo clamped at the image edges, to bound the peak
+    device memory of the chain's [H, W] float32 intermediates; None is
+    `auto_bands`. A band is the plan's develop over its rows with the CFA
+    pattern re-anchored to its first row (`CFA.shift`), as the JAX package
+    bands (engine.py:358-408 there); its halo rows are dropped, so every
+    kept row saw its real neighbours. The EXIF flips permute the
+    concatenated image. Bit-equal to bands=1: the stencil is 3x3-local and
+    every other stage pointwise. Other plans develop whole."""
+    plane = normalize_plane(plan, plane)
+    bands = auto_bands(plan) if bands is None else bands
+    if bands <= 1 or plan.mode != "cfa" or plan.dem_path != "full":
+        return _develop_one(plan, plane, plan.numerics)
+    from .kernels.develop import apply_flips
+
+    h = plan.height
+    band_h = -(-h // bands)
+    cfa = CFA(plan.cfa_name)
+    pieces = []
+    for s in range(0, h, band_h):
+        e = min(h, s + band_h)
+        s_h, e_h = max(0, s - 1), min(h, e + 1)
+        band = copy.copy(plan)
+        band.height, band.crop_y = e_h - s_h, plan.crop_y + s_h
+        band.cfa_name = cfa.shift(0, s_h).name
+        band.orientation_flips = (False, False, False)
+        pieces.append(_develop_one(band, plane, plan.numerics)[:, s - s_h:e - s_h])
+    return apply_flips(torch.cat(pieces, dim=1), plan.orientation_flips)
 
 
 def develop_batch_perimage(plans, planes: torch.Tensor) -> torch.Tensor:
@@ -302,6 +343,92 @@ def develop_batch_perimage(plans, planes: torch.Tensor) -> torch.Tensor:
     if any(p.statics() != statics for p in plans[1:]):
         raise ValueError("develop_batch_perimage: the plans of a batch must share their statics")
     return torch.stack([_develop_one(p, planes[i], p.numerics) for i, p in enumerate(plans)])
+
+
+# -- the width-sharded eager develop -----------------------------------------
+#
+# The counterpart of the JAX package's GSPMD partition of
+# `_develop_batch_perimage_jit` over the 'spatial' mesh axis
+# (parallel/batch.py:160-172 there): each of a row's devices develops one
+# column shard of every image of a chunk, and the shards' outputs are
+# assembled on the row's first device, where the EXIF flips permute the
+# whole image. Every output value is the same sequence of float32
+# operations as in `develop_batch_perimage`, so the two are bit-equal.
+
+def sp_spans(plan: DevelopPlan, spatial: int) -> list[tuple[int, int, int, int]]:
+    """(o0, n, x0, w) of each shard of the sharded eager develop: output
+    columns o0 .. o0 + n - 1 (before the flips) from the crop's columns
+    x0 .. x0 + w - 1. A full-size plan cuts its crop into
+    `kdev.sp_shards(plan.width, spatial)` and each shard develops its own
+    columns. A resize plan ('scaled', 'fulldown', 'plaindown') has windows
+    that cross any cut of its source, so it cuts its OUTPUT columns
+    instead (`sp_shards(plan.dem_w, spatial)`), and each shard takes the
+    source span its windows read (`source_span`); neighbouring spans
+    overlap."""
+    from .kernels.develop import sp_shards
+
+    if plan.dem_path == "full":
+        return [(x, w, x, w) for x, w in sp_shards(plan.width, spatial)]
+    g = scale_down_axes(plan.width, plan.height, plan.dem_w, plan.dem_h)
+    spans = []
+    for o0, n in sp_shards(plan.dem_w, spatial):
+        xs, xe = source_span(g, o0, o0 + n, plan.width)
+        spans.append((o0, n, xs, xe - xs))
+    return spans
+
+
+def stage_perimage_sp(plan: DevelopPlan, planes, spatial: int,
+                      pin: bool = False) -> list[torch.Tensor]:
+    """Host staging of the sharded eager develop: `planes` (one normalized
+    host plane or a sequence of B) as one tensor per shard of
+    `sp_spans(plan, spatial)` ([B, H, w + 2], rgb [B, H, w + 2, 3];
+    `kdev.stage_columns`). A full-size plan's shards are `kdev.stage_sp`'s,
+    whose inner halos `exchange_halos` fills on the devices; a resize
+    plan's overlapping spans take their halo columns from the host, which
+    holds every column."""
+    from .kernels import develop as kdev
+
+    if plan.dem_path == "full":
+        return kdev.stage_sp(plan, planes, spatial, pin=pin)
+    spans = [(x0, w) for _, _, x0, w in sp_spans(plan, spatial)]
+    return kdev.stage_columns(plan, planes, spans, pin=pin, halos=True)
+
+
+def develop_batch_perimage_sp(plans, planes_shards, devices) -> torch.Tensor:
+    """`develop_batch_perimage` width-sharded over `devices` (a row of
+    `parallel.make_batch_mesh`; a device may repeat): `planes_shards` are
+    `stage_perimage_sp(plans[0], ..., len(devices))`'s, on the host or on
+    their devices, shard i on devices[i]. For a cfa full-size plan the
+    halos are exchanged between the devices (`kdev.exchange_halos`); each
+    shard develops its columns of every image with that image's
+    calibration in its plan's numerics (`kdev.develop_shard`), and the
+    outputs are assembled on devices[0] and flipped there -> quantized
+    planar [B, 3, H', W']. Plain PyTorch on any device: no kernel is
+    launched."""
+    from .kernels import develop as kdev
+
+    plan = plans[0]
+    statics = plan.statics()
+    if any(p.statics() != statics for p in plans[1:]):
+        raise ValueError("develop_batch_perimage_sp: the plans of a batch must share "
+                         "their statics")
+    devices = [torch.device(d) for d in devices]
+    spans = sp_spans(plan, len(devices))
+    if len(planes_shards) != len(spans) or any(
+            s.shape[0] != len(plans) or s.shape[2] != w + 2
+            for s, (_, _, _, w) in zip(planes_shards, spans)):
+        raise ValueError(f"develop_batch_perimage_sp: shards "
+                         f"{[tuple(s.shape) for s in planes_shards]} for {len(plans)} plans "
+                         f"and spans {spans}")
+    shards = [s.to(d, non_blocking=True) for s, d in zip(planes_shards, devices)]
+    if plan.dem_path == "full" and plan.mode == "cfa":
+        kdev.exchange_halos(shards)
+    outs = []
+    for (o0, n, x0, _), s in zip(spans, shards):
+        local = [p.to(s.device) for p in plans]
+        outs.append(torch.stack([kdev.develop_shard(p, s[i], x0, p.numerics, (o0, o0 + n))
+                                 for i, p in enumerate(local)]))
+    return kdev.apply_flips(kdev.assemble(outs, devices[0]), plan.orientation_flips)
 
 
 def planar_to_hwc(out: torch.Tensor) -> np.ndarray:

@@ -57,11 +57,13 @@ import torch
 from ..raw import CFA
 from ..engine import _develop_one, finish_planes
 from ..ops.gofloat import levels
+from ..scaling import resample_aligned, scale_down_axes
 from .demosaic_full import OFFSETS_3X3, stencil_demosaic_shard
 
 __all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
            "develop_sp", "develop_sp_plain", "develop_sp_batch", "develop_sp_batch_plain",
-           "sp_shards", "stage_sp", "exchange_halos", "assemble",
+           "sp_shards", "stage_sp", "stage_columns", "exchange_halos", "assemble",
+           "develop_shard",
            "kernel_supported", "calib_tables", "batch_tables", "demosaic_phases",
            "develop_smem_bytes", "division_mismatches", "upload", "apply_flips", "build",
            "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
@@ -532,25 +534,37 @@ def sp_shards(width: int, spatial: int) -> list[tuple[int, int]]:
 def stage_sp(plan, planes, spatial: int, pin: bool = False) -> list[torch.Tensor]:
     """Host staging for the width-sharded develop (the counterpart of
     `stage_plane_rows_np`, develop_pallas.py:665-677): the plan's crop of
-    `planes` (one [H0, W0] host array, or a sequence of B of them) cut into
-    the shards of `sp_shards(plan.width, spatial)`, each a host tensor
-    [H, w + 2] (or [B, H, w + 2]) holding its own columns at 1..w and zero
-    halo columns. `exchange_halos` fills the inner halos on the devices; the
-    outer ones stay zero and validity masks them off. pin: allocate in
-    pinned memory, for a copy to the card that does not block the host."""
-    single = getattr(planes, "ndim", None) == 2
+    `planes` cut into the shards of `sp_shards(plan.width, spatial)` by
+    `stage_columns`, with zero halo columns. `exchange_halos` fills the
+    inner halos on the devices; the outer ones stay zero and validity masks
+    them off."""
+    return stage_columns(plan, planes, sp_shards(plan.width, spatial), pin=pin)
+
+
+def stage_columns(plan, planes, spans, pin: bool = False,
+                  halos: bool = False) -> list[torch.Tensor]:
+    """The plan's crop of `planes` (one [H0, W0] host array, rgb [H0, W0,
+    3], or a sequence of B of them) as one host tensor per span (x0, w) of
+    crop columns: [H, w + 2] (or [B, H, w + 2]; rgb with a last axis of 3)
+    holding columns x0 .. x0 + w - 1 at 1..w. Columns 0 and w + 1 are a
+    halo: the crop's columns x0 - 1 and x0 + w where `halos` is set and
+    they lie inside the crop, else zero. pin: allocate in pinned memory,
+    for a copy to the card that does not block the host."""
+    single = getattr(planes, "ndim", None) == (3 if plan.mode == "rgb" else 2)
     seq = [np.asarray(planes)] if single else [np.asarray(p) for p in planes]
     dtype = torch.from_numpy(seq[0][:0]).dtype
     h, y0 = plan.height, plan.crop_y
     shards = []
-    for x_off, w in sp_shards(plan.width, spatial):
-        buf = torch.empty((len(seq), h, w + 2), dtype=dtype, pin_memory=pin)
+    for x_off, w in spans:
+        buf = torch.empty((len(seq), h, w + 2, *seq[0].shape[2:]), dtype=dtype, pin_memory=pin)
         host = buf.numpy()
-        host[:, :, 0] = 0
-        host[:, :, -1] = 0
-        x0 = plan.crop_x + x_off
+        lo = max(x_off - 1, 0) if halos else x_off
+        hi = min(x_off + w + 1, plan.width) if halos else x_off + w
+        host[:, :, :lo - x_off + 1] = 0
+        host[:, :, hi - x_off + 1:] = 0
         for i, p in enumerate(seq):
-            host[i, :, 1:w + 1] = p[y0:y0 + h, x0:x0 + w]
+            host[i, :, lo - x_off + 1:hi - x_off + 1] = p[y0:y0 + h,
+                                                          plan.crop_x + lo:plan.crop_x + hi]
         shards.append(buf[0] if single else buf)
     return shards
 
@@ -604,28 +618,47 @@ def _place(plan, shards, devices, batch: bool) -> tuple[list, list[int]]:
     return placed, _x_offsets(placed)
 
 
-def _develop_shard_plain(plan, local: torch.Tensor, x_off: int) -> torch.Tensor:
-    """One shard [H, w + 2] of raw counts developed in plain PyTorch with
-    global validity and CFA colour -> unflipped [3, H, w]."""
+def develop_shard(plan, local: torch.Tensor, x_off: int, numerics: str = "direct",
+                  out_cols=None) -> torch.Tensor:
+    """One shard of raw counts developed in plain PyTorch with the whole
+    image's validity, CFA colour and resample windows -> unflipped
+    [3, H', n]. `local` ([H, w + 2], rgb [H, w + 2, 3]; `stage_columns`)
+    holds the crop's columns x_off .. x_off + w - 1 at 1..w and a 1-column
+    halo each side, which only the stencil demosaic reads. A full-size
+    plan develops those w columns; a resize plan ('scaled', 'fulldown',
+    'plaindown') its output columns out_cols = (o0, o1), whose source
+    windows the shard must hold (`scaling.source_span`)."""
     p = plan.params
-    v = levels(local.float(), p["mins"][0], p["ranges"][0])
-    if plan.mode == "mono":
-        c = v[:, 1:-1].contiguous()
-        rgbe = [c, c, c, torch.zeros_like(c)]
+    local = local.float()
+    if plan.mode == "rgb":
+        rgbe = [levels(local[:, 1:-1, c], p["mins"][c], p["ranges"][c]) for c in range(3)]
+        rgbe.append(torch.zeros_like(rgbe[0]))
     else:
-        rgbe = stencil_demosaic_shard(v, plan.cfa_name, plan.height, plan.width, x_off)
+        v = levels(local, p["mins"][0], p["ranges"][0])
+        if plan.mode == "mono":
+            c = v[:, 1:-1].contiguous()
+            rgbe = [c, c, c, torch.zeros_like(c)]
+        elif plan.dem_path == "scaled":
+            rgbe = [v[:, 1:-1]]
+        else:
+            rgbe = stencil_demosaic_shard(v, plan.cfa_name, plan.height, plan.width, x_off)
+    if plan.dem_path != "full":
+        g = scale_down_axes(plan.width, plan.height, plan.dem_w, plan.dem_h)
+        cfa = CFA(plan.cfa_name) if plan.dem_path == "scaled" else None
+        rgbe = list(resample_aligned(torch.stack(rgbe), g, plan.width, plan.height, 4, cfa,
+                                     out_cols, x_off))
     return finish_planes(rgbe, p, out_bits=plan.out_bits, linear=plan.linear,
                          apply_curve=plan.apply_curve, n_knots=plan.n_knots,
-                         orientation_flips=(False, False, False), numerics="direct")
+                         orientation_flips=(False, False, False), numerics=numerics)
 
 
 def develop_sp_plain(plan, plane_shards) -> torch.Tensor:
     """`develop_sp` in plain PyTorch on the shards' devices: the halos
     exchanged, each shard developed from its own columns
-    (`_develop_shard_plain`), the outputs assembled on the first shard's
+    (`develop_shard`), the outputs assembled on the first shard's
     device and flipped there."""
     exchange_halos(plane_shards)
-    outs = [_develop_shard_plain(plan, s, x)
+    outs = [develop_shard(plan, s, x)
             for s, x in zip(plane_shards, _x_offsets(plane_shards))]
     return apply_flips(assemble(outs, plane_shards[0].device), plan.orientation_flips)
 
@@ -636,7 +669,7 @@ def develop_sp_batch_plain(plans, planes_shards) -> torch.Tensor:
     exchange_halos(planes_shards)
     x_offs = _x_offsets(planes_shards)
     out = torch.stack([
-        assemble([_develop_shard_plain(p, s[i], x) for s, x in zip(planes_shards, x_offs)],
+        assemble([develop_shard(p, s[i], x) for s, x in zip(planes_shards, x_offs)],
                  planes_shards[0].device)
         for i, p in enumerate(plans)])
     return apply_flips(out, plans[0].orientation_flips)

@@ -134,7 +134,8 @@ def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None):
     """One fused segment: `stages` (a run of STAGES, in order) with their
     `params` on `data`, keeping the outputs `keep` flags (all by default),
     quantized to `quant` bits after the last stage when it is 8 or 16.
-    Returns (outputs, quantized) on the input's device."""
+    Returns (outputs, quantized) on the input's device. A frame with no
+    pixels gives empty outputs and launches nothing."""
     stages = tuple(stages)
     keep = [True] * len(stages) if keep is None else [bool(k) for k in keep]
     check_segment(data, stages, params, quant, keep)
@@ -146,29 +147,31 @@ def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None):
     if height * width > _MAX_PIXELS:
         raise ValueError(f"suffix kernel: {height} x {width} pixels, at most {_MAX_PIXELS}")
     transpose, flip_x, flip_y = dict(zip(stages, params)).get("transform", (False,) * 3)
-    table, n_knots = pack_params(stages, params)
-    table = kdev.upload(table, data.device)
     outs = [torch.empty((3, height, width), dtype=torch.float32, device=data.device)
             if k else None for k in keep]
     q = None
     if quant is not None:
         q = torch.empty((3, height, width), dtype=torch.uint8 if quant == 8 else torch.uint16,
                         device=data.device)
-    ptr = dict.fromkeys(STAGES)
-    for s, o in zip(stages, outs):
-        ptr[s] = None if o is None else o.data_ptr()
-    bits = sum(1 << STAGES.index(s) for s in stages)
-    lib = kdev._library()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.suffix_launch(
-            data.data_ptr(), data.stride(0), data.stride(1), height, width, bits,
-            table.data_ptr(), n_knots, int(bool(flip_x)), int(bool(flip_y)),
-            *(ptr[s] for s in STAGES), None if q is None else q.data_ptr(), quant or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"suffix kernel launch failed: cudaError {rc}")
-    global LAUNCHES
-    LAUNCHES += 1
+    if height * width:
+        table, n_knots = pack_params(stages, params)
+        table = kdev.upload(table, data.device)
+        ptr = dict.fromkeys(STAGES)
+        for s, o in zip(stages, outs):
+            ptr[s] = None if o is None else o.data_ptr()
+        bits = sum(1 << STAGES.index(s) for s in stages)
+        lib = kdev._library()
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream(data.device).cuda_stream
+            rc = lib.suffix_launch(
+                data.data_ptr(), data.stride(0), data.stride(1), height, width, bits,
+                table.data_ptr(), n_knots, int(bool(flip_x)), int(bool(flip_y)),
+                *(ptr[s] for s in STAGES), None if q is None else q.data_ptr(), quant or 0,
+                stream)
+        if rc != 0:
+            raise RuntimeError(f"suffix kernel launch failed: cudaError {rc}")
+        global LAUNCHES
+        LAUNCHES += 1
     if transpose:
         # The flips were stores; the transpose is a view, as apply_flips
         # returns it.

@@ -3,13 +3,14 @@
 parallel over its rows and width-sharded across each row
 (`make_batch_mesh`, `BatchEngine(spatial=...)`), and the multi-process
 input feed over torch.distributed (`MultiHostBatchEngine`,
-`partition_files`). Not ported: width sharding of the eager route, which
-runs whole on a row's first device (parallel/batch.py)."""
+`partition_files`). `shard_batch` places a batch of planes over the grid,
+as the JAX package's does."""
 
 from __future__ import annotations
 
-from .batch import BatchEngine, BatchError, default_decode_workers, make_batch_mesh
+from .batch import (BatchEngine, BatchError, default_decode_workers, make_batch_mesh,
+                    shard_batch)
 from .multihost import MultiHostBatchEngine, partition_files
 
 __all__ = ["BatchEngine", "BatchError", "MultiHostBatchEngine", "default_decode_workers",
-           "make_batch_mesh", "partition_files"]
+           "make_batch_mesh", "partition_files", "shard_batch"]

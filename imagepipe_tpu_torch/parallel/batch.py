@@ -19,9 +19,17 @@ a host thread pool, bucketed by shape class, and each bucket is developed
     (`kernels.develop.develop_sp_batch`: one launch per column shard, a
     1-column halo exchange between the shards, the output assembled on the
     row's first device), the counterpart of the sp branch of the JAX
-    package's `_dispatch_pallas`. 'scaled' plans are never width-sharded
-    (their outputs are small) and eager plans are not yet (ROADMAP A11):
-    both run whole on the row's first device.
+    package's `_dispatch_pallas`; and every chunk the eager engine develops
+    is width-sharded by `engine.develop_batch_perimage_sp` (full-size
+    plans by crop columns with 1-column halos, resize plans by output
+    columns, each shard staged with the source span its windows read),
+    the counterpart of GSPMD partitioning the JAX package's XLA engine
+    over its 'spatial' axis. Both are bit-equal to spatial=1. 'scaled'
+    plans that the scaled kernel takes develop whole on the row's first
+    device (`develop_scaled_batch`): their outputs are small, and the
+    kernel has no shard form. The JAX package XLA-shards those plans
+    instead, because its Pallas scaled kernel has no shard form either;
+    both agree within the cross-path contract.
 
 Decode/compute overlap: `develop_files` dispatches a bucket the moment it
 fills while the pool keeps decoding. Dispatch does not wait for the card:
@@ -49,13 +57,15 @@ import torch
 
 from .. import color as cc
 from ..decode import decode_file
-from ..engine import develop_batch_perimage, make_develop_plan, normalize_plane_np
+from ..engine import (develop_batch_perimage, develop_batch_perimage_sp, make_develop_plan,
+                      normalize_plane_np, stage_perimage_sp)
 from ..kernels import develop as kdev
 from ..kernels import develop_scaled as kds
 from ..pipeline import Pipeline, default_device
 from ..sources import ImageSource
 
-__all__ = ["BatchEngine", "BatchError", "default_decode_workers", "make_batch_mesh"]
+__all__ = ["BatchEngine", "BatchError", "default_decode_workers", "make_batch_mesh",
+           "shard_batch"]
 
 
 class BatchError:
@@ -104,6 +114,26 @@ def make_batch_mesh(devices=None, spatial: int = 1) -> list[list[torch.device]]:
     return [devices[i:i + spatial] for i in range(0, len(devices), spatial)]
 
 
+def shard_batch(rows, planes) -> list[list[torch.Tensor]]:
+    """Place [B, H, W] or [B, H, W, C] planes (a host array or a tensor)
+    over a grid of devices (`make_batch_mesh`), the counterpart of the JAX
+    package's `shard_batch` (parallel/batch.py:68-71): the batch in
+    contiguous blocks of ceil(B / len(rows)) images over the rows, and W
+    in the column shards of `kdev.sp_shards(W, spatial)` over each row's
+    devices, with no halo. Returns [row][shard] tensors, each contiguous
+    on its device; a row past the batch's end holds empty blocks, and a W
+    narrower than the shards gives a row fewer pieces than devices."""
+    planes = torch.as_tensor(planes)
+    if planes.dim() not in (3, 4) or not rows:
+        raise ValueError(f"shard_batch: planes {tuple(planes.shape)} over {len(rows)} rows; "
+                         f"want [B, H, W] or [B, H, W, C] over one row or more")
+    block = -(-planes.shape[0] // len(rows))
+    cols = kdev.sp_shards(planes.shape[2], len(rows[0]))
+    return [[planes[r * block:(r + 1) * block, :, x:x + w].to(d).contiguous()
+             for (x, w), d in zip(cols, row)]
+            for r, row in enumerate(rows)]
+
+
 def _timed_decode(path):
     t = time.perf_counter()
     src = decode_file(path)
@@ -116,9 +146,9 @@ class BatchEngine:
     devices: the devices, default every CUDA device (raises without one);
     a device may appear more than once. spatial: devices per row of the
     grid (`make_batch_mesh`); chunks go to the rows in turn, and with
-    spatial > 1 a row width-shards each full-size kernel chunk, so
-    devices=["cuda:0", "cuda:0"], spatial=2 runs the sharded path on one
-    card. out_bits: 8 (sRGB) or 16 (linear). max_batch: images per launch.
+    spatial > 1 a row width-shards each chunk but those of the scaled
+    kernel, so devices=["cuda:0", "cuda:0"], spatial=2 runs the sharded
+    path on one card. out_bits: 8 (sRGB) or 16 (linear). max_batch: images per launch.
     decode_workers: decode threads (default `default_decode_workers()`).
     maxwidth / maxheight: thumbnail limits, 0 for none. executor: 'auto' or
     'kernel' (the batched kernels for the plans they take; the two are the
@@ -188,16 +218,22 @@ class BatchEngine:
         return tuple(sorted(plan.statics().items())), data.shape, data.dtype.str
 
     def _sharded(self, plan) -> bool:
-        """A chunk is width-sharded across its row: full-size kernel plans
-        with spatial > 1 (the JAX package shards no 'scaled' plan,
-        parallel/batch.py:142-143)."""
-        return self.spatial > 1 and self._use_kernel(plan) and kdev.kernel_supported(plan)
+        """With spatial > 1 a chunk is width-sharded across its row, unless
+        the scaled kernel takes it: full-size kernel plans by the shard
+        launches, every plan of the eager engine by its sharded form. The
+        JAX package shards every plan but its Pallas 'scaled' ones, which
+        its XLA engine shards instead (parallel/batch.py:142-143 there)."""
+        if self.spatial == 1:
+            return False
+        return not self._use_kernel(plan) or kdev.kernel_supported(plan)
 
     def _develop(self, plans, staged, row) -> torch.Tensor:
         """Upload a staged chunk and develop it: its shards across the row,
         or whole on the row's first device."""
         if isinstance(staged, list):
-            return kdev.develop_sp_batch(plans, staged, row)
+            if self._use_kernel(plans[0]):
+                return kdev.develop_sp_batch(plans, staged, row)
+            return develop_batch_perimage_sp(plans, staged, row)
         planes = staged.to(row[0], non_blocking=True)
         if not self._use_kernel(plans[0]):
             return develop_batch_perimage([p.to(planes.device) for p in plans], planes)
@@ -207,10 +243,13 @@ class BatchEngine:
 
     def _stage(self, chunk, pin: bool):
         """The chunk's normalized sensor planes on the host: stacked
-        [B, H0, W0], or cut into its row's width shards (`kdev.stage_sp`)."""
-        planes = [normalize_plane_np(plan, src.raw.data) for _, src, plan in chunk]
-        if self._sharded(chunk[0][2]):
-            return kdev.stage_sp(chunk[0][2], planes, self.spatial, pin=pin)
+        [B, H0, W0], or cut into its row's width shards (`kdev.stage_sp`
+        for the shard launches, `stage_perimage_sp` for the eager engine)."""
+        plan = chunk[0][2]
+        planes = [normalize_plane_np(p, src.raw.data) for _, src, p in chunk]
+        if self._sharded(plan):
+            stage = kdev.stage_sp if self._use_kernel(plan) else stage_perimage_sp
+            return stage(plan, planes, self.spatial, pin=pin)
         dtype = torch.from_numpy(planes[0][:0]).dtype
         buf = torch.empty((len(chunk), *planes[0].shape), dtype=dtype, pin_memory=pin)
         host = buf.numpy()

@@ -13,8 +13,12 @@ window gives 0.
   package's `_transform_aligned_impl`, run eagerly on the input's device as
   a direct windowed gather: a row gather by window row, then a column
   gather by window column, accumulated ky outer, kx inner, as the
-  reference's scalar loop. The one-hot column matmul, banding and static
-  unroll of the JAX file are TPU workarounds and are not ported.
+  reference's scalar loop (`resample_aligned`). It takes a range of output
+  columns and a source holding only the columns they read
+  (`source_span`), so the eager engine's width shards resample their own
+  columns with the whole geometry's windows. The one-hot column matmul,
+  banding and static unroll of the JAX file are TPU workarounds and are
+  not ported.
 * Rotated geometry (rotatecrop) is `_transform_impl`: the window bounds
   vary along both axes, so each (ky, kx) step gathers one sample per output
   pixel. On CUDA it is the rotate kernel (kernels/rotate.py,
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -44,7 +49,8 @@ import torch
 from .buffer import OpBuffer
 
 __all__ = ["calculate_scaling_total", "scaling_size", "calculate_scale",
-           "sat_floor_np", "AlignedAxes", "aligned_axes", "RotatedGeometry",
+           "sat_floor_np", "AlignedAxes", "aligned_axes", "scale_down_axes", "source_span",
+           "resample_aligned", "RotatedGeometry",
            "rotated_geometry", "transform_buffer", "transform_buffer_planar",
            "scale_down_planar", "scaled_demosaic", "scale_down_opbuf",
            "scale_down_srgb", "scale_down_srgb16"]
@@ -132,15 +138,39 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.tensor(float(v), dtype=torch.float32, device=device)
 
 
-def _transform_aligned(planes: torch.Tensor, width, height, topleft, topright,
-                       bottomleft, nwidth, nheight, components, cfa=None):
-    """planes [C, H, W] float32 (C=1 with `cfa`) -> [C', nh, nw] float32,
-    C' = 4 with a CFA, else `components`."""
+@lru_cache(maxsize=64)
+def scale_down_axes(width: int, height: int, nwidth: int, nheight: int) -> AlignedAxes:
+    """The aligned axes of a scale-down of a whole `width` x `height` image
+    (corners (0, 0), (W - 1, 0), (0, H - 1)), computed once per geometry:
+    its arrays are shared and never written."""
+    return aligned_axes(width, height, (0, 0), (width - 1, 0), (0, height - 1), nwidth,
+                        nheight)
+
+
+def source_span(g: AlignedAxes, o0: int, o1: int, width: int) -> tuple[int, int]:
+    """[xs, xe): the source columns that output columns o0 .. o1 - 1 of `g`
+    read, in weight or not: each column walks from_x .. from_x + k_x - 1,
+    clamped to the image (`resample_aligned`)."""
+    from_x = g.from_x[o0:o1]
+    return int(from_x.min()), min(int(from_x.max()) + g.k_x, width)
+
+
+def resample_aligned(planes: torch.Tensor, g: AlignedAxes, width, height, components,
+                     cfa=None, cols=None, x0: int = 0) -> torch.Tensor:
+    """The axis-aligned resample of `g` over a source `width` x `height`,
+    for output columns cols = (o0, o1) (default all): planes [C, H, w]
+    float32 (C=1 with `cfa`) hold source columns x0 .. x0 + w - 1, which
+    must cover `source_span(g, o0, o1, width)` -> [C', nh, o1 - o0]
+    float32, C' = 4 with a CFA, else `components`. Window indices, centres
+    and CFA colours are the whole geometry's, so every output value is the
+    same sequence of float32 operations whatever the column range."""
     dev = planes.device
-    g = aligned_axes(width, height, topleft, topright, bottomleft, nwidth, nheight)
-    from_x, to_x, from_y, to_y = (torch.from_numpy(a.astype(np.int64)).to(dev)
-                                  for a in (g.from_x, g.to_x, g.from_y, g.to_y))
-    cx, cy = (torch.from_numpy(a).to(dev) for a in (g.cx, g.cy))
+    o0, o1 = (0, len(g.from_x)) if cols is None else cols
+    nheight, nwidth = len(g.from_y), o1 - o0
+    from_x, to_x = (torch.from_numpy(a[o0:o1].astype(np.int64)).to(dev)
+                    for a in (g.from_x, g.to_x))
+    from_y, to_y = (torch.from_numpy(a.astype(np.int64)).to(dev) for a in (g.from_y, g.to_y))
+    cx, cy = torch.from_numpy(g.cx[o0:o1]).to(dev), torch.from_numpy(g.cy).to(dev)
     sxx, syy = _scalar(g.sxx, dev), _scalar(g.syy, dev)
     f = torch.float32
 
@@ -160,7 +190,7 @@ def _transform_aligned(planes: torch.Tensor, width, height, topleft, topright,
         valid_y = (from_y + ky) <= to_y
         dy = (y.to(f) - cy) / syy
         dy2 = dy * dy                                        # [nh]
-        rows = planes[:, y, :]                               # [C, nh, W]
+        rows = planes[:, y, :]                               # [C, nh, w]
         for kx in range(g.k_x):
             x = torch.clamp(from_x + kx, max=width - 1)
             valid_x = (from_x + kx) <= to_x
@@ -169,7 +199,7 @@ def _transform_aligned(planes: torch.Tensor, width, height, topleft, topright,
             factor = (1.0 - dx * dx)[None, :] - dy2[:, None]
             factor = torch.where(factor < 0.0, 0.0, factor)
             w = torch.where(valid_y[:, None] & valid_x[None, :], factor, 0.0)
-            sel = rows[:, :, x]                              # [C, nh, nw]
+            sel = rows[:, :, x - x0]                         # [C, nh, nw]
             if cfa is None:
                 sums = sums + sel * w
                 counts = counts + w
@@ -317,13 +347,18 @@ def transform_buffer_planar(src_chw: torch.Tensor, width, height, topleft,
     (C' = 4 with `cfa`, else `components`). Axis-aligned geometry runs the
     eager aligned resampler; a rotated one goes to kernels/rotate.py (the
     CUDA kernel for a CUDA tensor, its plain version on the CPU): its CFA
-    route with `cfa`, else the per-channel resample."""
+    route with `cfa`, else the per-channel resample. An output with no
+    pixels is an empty tensor on the source's device, and nothing is
+    launched (the JAX package's resample returns the empty array)."""
     width, height, nwidth, nheight, components = (
         int(v) for v in (width, height, nwidth, nheight, components))
+    if nwidth == 0 or nheight == 0:
+        return torch.empty((4 if cfa is not None else components, nheight, nwidth),
+                           dtype=torch.float32, device=src_chw.device)
     src_chw = src_chw.to(torch.float32)
     if _is_aligned(topleft, topright, bottomleft, nwidth, nheight):
-        return _transform_aligned(src_chw, width, height, topleft, topright,
-                                  bottomleft, nwidth, nheight, components, cfa)
+        g = aligned_axes(width, height, topleft, topright, bottomleft, nwidth, nheight)
+        return resample_aligned(src_chw, g, width, height, components, cfa)
     from .kernels import rotate as krot
 
     if cfa is not None:
@@ -354,10 +389,9 @@ def scale_down_planar(src_chw: torch.Tensor, nwidth: int, nheight: int,
                       components: int, cfa=None) -> torch.Tensor:
     """Planar [C, H, W] -> [C', nh, nw] float32 scale-down of the whole
     image (C=1 with `cfa`: the fused demosaic-downscale)."""
-    _, height, width = src_chw.shape
-    return _transform_aligned(src_chw.to(torch.float32), int(width), int(height),
-                              (0, 0), (int(width) - 1, 0), (0, int(height) - 1),
-                              int(nwidth), int(nheight), int(components), cfa)
+    _, height, width = (int(v) for v in src_chw.shape)
+    g = scale_down_axes(width, height, int(nwidth), int(nheight))
+    return resample_aligned(src_chw.to(torch.float32), g, width, height, int(components), cfa)
 
 
 def scaled_demosaic(cfa, buf: OpBuffer, nwidth: int, nheight: int) -> OpBuffer:
