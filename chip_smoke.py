@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each ending in torch.cuda.synchronize():
   0. setup: the card's name and power limit; build the CUDA kernels from
      csrc/ (develop.cu, develop_scaled.cu, rotate.cu with its CFA route,
-     suffix.cu and the division proof, one nvcc each, in parallel);
+     suffix.cu, develop_variants.cu and the division proof, one nvcc each,
+     in parallel);
   1. each kernel against its plain PyTorch version on the card, at full
      size, and the proof that the kernels' reciprocal-multiply division
      (finish.cuh div_rcp) equals the IEEE one for every input they give it. The develop kernel: 24 MP Bayer 8-bit and 16-bit linear, 26 MP
@@ -127,6 +128,21 @@ Phases, each ending in torch.cuda.synchronize():
      to_lab. The inputs: a [4, H, W] plane over [-0.1, 1.2) and the plain
      stages' outputs on it (values below 0 and above 1), each with 3000
      each of NaN, +Inf and -Inf planted. One launch per segment;
+  1f. the develop kernel's ablation ladder (kernels/variants.py::
+     run_variant, csrc/develop_variants.cu, the port of the TPU experiments
+     scripts/exp_kernel_variants.py and exp_kernel_variants3.py): every
+     rung, each variant (noop, dma_floor, levels, demosaic, color_only,
+     full) of form A and B on u16 and f32 24 MP planes to u8 and (form B)
+     f32 outputs, once through run_variant with the counts set to 0 just
+     before and read just after (one launch per rung of its form, no other
+     kernel); each held to its plain version on the card (u8 max |diff| <=
+     1 LSB on < 2% of values, f32 max |diff| <= 1e-3; dma_floor form A also
+     at a 32 x 768 TPU tile); then every rung timed as the develop kernels
+     are, beside kernels.develop.develop on the same plan and planes
+     (scripts/torch_kernel_variants.py), with the plain versions from idle
+     and noop form B beside Tensor.zero_(). The kernels line's
+     `develop_variants` row is rung full_A_u16_u8 and `develop_variants3`
+     rung noop_B_u16_u8 (library: zero_());
   2c. the staged edit path at full width: a 24 MP Bayer DNG through
      RenderService(device="cuda").open_file, then edits: rotation 0.05 +
      crop_left 0.05 (the first render), exposure +0.3, rotation 0.1, and
@@ -219,6 +235,7 @@ from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
 from imagepipe_tpu_torch.kernels import rotate as krot
 from imagepipe_tpu_torch.kernels import suffix as ksuf
+from imagepipe_tpu_torch.kernels import variants as kv
 from imagepipe_tpu_torch import pipeline as ppl
 from imagepipe_tpu_torch.parallel import BatchEngine, BatchError, MultiHostBatchEngine
 from imagepipe_tpu_torch.service import RenderService
@@ -226,6 +243,7 @@ from imagepipe_tpu_torch.sources import ImageSource, image_content_hash
 
 sys.path.insert(1, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
 import time_develop_kernels as tdk  # noqa: E402
+import torch_kernel_variants as tkv  # noqa: E402
 
 BAYER = (6000, 4000)
 XTRANS = (6240, 4168)
@@ -315,13 +333,15 @@ def _reset_counts():
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
     krot.LAUNCHES = krot.DIRECT_LAUNCHES = krot.CFA_LAUNCHES = krot.CFA_DIRECT_LAUNCHES = 0
     ksuf.LAUNCHES = 0
+    kv.VARIANT_LAUNCHES.update(A=0, B=0)
 
 
 def _counts() -> dict:
     return {"develop": kdev.LAUNCHES, "develop_scaled": kds.LAUNCHES,
             "develop_batch": kdev.BATCH_LAUNCHES, "develop_scaled_batch": kds.BATCH_LAUNCHES,
             "rotate": krot.LAUNCHES, "develop_sp": kdev.SP_LAUNCHES, "suffix": ksuf.LAUNCHES,
-            "rotate_cfa": krot.CFA_LAUNCHES}
+            "rotate_cfa": krot.CFA_LAUNCHES, "develop_variants": kv.VARIANT_LAUNCHES["A"],
+            "develop_variants3": kv.VARIANT_LAUNCHES["B"]}
 
 
 def _upload(raw, device):
@@ -1666,6 +1686,85 @@ def phase1e(device, shapes) -> float:
     return worst
 
 
+# -- the develop kernel's ablation ladder (csrc/develop_variants.cu) ---------
+
+# The kernels line's rung for each form: A its top, comparable with the
+# develop kernel; B its floor, beside the library call that computes it.
+LADDER_ROWS = {"develop_variants": "full_A_u16_u8", "develop_variants3": "noop_B_u16_u8"}
+LADDER_TILE2 = (32, 768)      # a second TPU tile dma_floor form A is held at
+
+
+def phase1f(device, size, card) -> tuple[dict, dict, dict]:
+    """The ladder's path: every rung of both experiments' kernels
+    (tkv.rungs(): each variant and form, u16 and f32 planes, u8 and f32
+    outputs) once through kernels.variants.run_variant on a `size` synthetic
+    Bayer plane, the counts set to 0 just before and read just after (one
+    launch per rung of each form, no other kernel). Each output is then held
+    to its plain version on the card: u8 max |diff| <= 1 LSB on < 2% of
+    values, f32 max |diff| <= kv.MAX_F32_DIFF; dma_floor form A also at a
+    second TPU tile. Then the ladder is timed beside the develop kernel on
+    the same plan (tkv.time_ladder: device ms back to back over 3 cold
+    planes, plain versions from idle, noop form B beside Tensor.zero_).
+    Returns ({entry: launches}, {entry: max |diff|}, {entry: timing}) for
+    the kernels line's two entries (LADDER_ROWS)."""
+    plan, scal, planes = tkv.ladder_inputs(size, device, tdk.INPUTS)
+    rungs = tkv.rungs()
+    _reset_counts()
+    outs = [tkv.run_rung(r, planes[r.input][0], scal) for r in rungs]
+    _sync(device)
+    counts = _counts()
+    want = {k: 0 for k in counts}
+    for r in rungs:
+        want["develop_variants" if r.form == "A" else "develop_variants3"] += 1
+    print(f"  {len(rungs)} rungs at {size[0]}x{size[1]}: launches {counts}")
+    if device.type == "cuda" and counts != want:
+        raise AssertionError(f"ladder: launches {counts}, want {want}")
+    errors = {"develop_variants": 0.0, "develop_variants3": 0.0}
+    checks = [(r, None, got) for r, got in zip(rungs, outs)]
+    for inp in ("u16", "f32"):
+        got = kv.run_variant(planes[inp][0], scal, height=size[1], width=size[0],
+                             variant="dma_floor", form="A", tile=LADDER_TILE2)
+        checks.append((tkv.Rung("dma_floor", "A", inp, "u8"), LADDER_TILE2, got))
+    for r, tile, got in checks:
+        args = dict(height=size[1], width=size[0], variant=r.variant, form=r.form,
+                    out_dtype=r.out_dtype, tile=tile or r.tile)
+        want_out = kv.variant_plain(planes[r.input][0], scal, **args)
+        maxd, frac = kv.compare_variant(got, want_out)
+        bits = torch.equal(got, want_out)
+        ok = (maxd <= kv.MAX_F32_DIFF if r.output == "f32"
+              else maxd <= kdev.MAX_LSB and frac < kdev.MAX_FLIP_FRACTION)
+        print(f"  {r.name}{f' tile {tile}' if tile else ''}: max |diff| {maxd}, differing "
+              f"{frac:.6f}{', bit-equal' if bits else ''}")
+        if not ok:
+            raise AssertionError(f"{r.name}: max |diff| {maxd}, differing {frac} against the "
+                                 f"plain version")
+        entry = "develop_variants" if r.form == "A" else "develop_variants3"
+        errors[entry] = max(errors[entry], maxd)
+        del want_out
+    del outs, checks
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  the ladder timed beside the develop kernel (on {card}):")
+    rows = {row["exp"]: row for row in tkv.time_ladder(
+        plan, scal, planes, device, card, emit=lambda line: print(f"    {line}"))}
+    times = {}
+    for entry, exp in LADDER_ROWS.items():
+        row = rows[exp]
+        times[entry] = {"rung": exp, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]}
+    dev = rows["develop"]
+    print(f"  develop in this phase: {dev['ms']:.4f} ms ({dev['clock']} clock); ladder top "
+          f"full_A_u16_u8 {rows['full_A_u16_u8']['ms']:.4f}, floor noop_B_u16_u8 "
+          f"{rows['noop_B_u16_u8']['ms']:.4f} (zero_() {rows['noop_B_u16_u8']['library_ms']:.4f})"
+          f" (on {card})")
+    del planes
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = {e: counts[e] for e in LADDER_ROWS}
+    return launches, errors, times
+
+
 def _stage_key(pipe, nstages) -> bytes:
     """The chain hash of stage `nstages` - 1 of `pipe`'s last staged run."""
     h = BufHasher()
@@ -1897,6 +1996,10 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "imagepipe_tpu/pipeline.py:329 (_dispatch_fused, an XLA jit; no Pallas)"),
     ("rotate_cfa", "imagepipe_tpu_torch/csrc/rotate.cu",
      "imagepipe_tpu/scaling.py:79 (_transform_impl, CFA mode; XLA)"),
+    ("develop_variants", "imagepipe_tpu_torch/csrc/develop_variants.cu",
+     "scripts/exp_kernel_variants.py:37 (make_kernel, launched :203)"),
+    ("develop_variants3", "imagepipe_tpu_torch/csrc/develop_variants.cu",
+     "scripts/exp_kernel_variants3.py:37 (make_kernel, launched :207)"),
 )
 
 
@@ -1933,6 +2036,9 @@ def main() -> int:
     errors["develop_sp"] = phase1d(device, SP_CASES, bayer_bases)
     print("phase 1e: the suffix kernel vs its plain version, bit for bit")
     errors["suffix"] = phase1e(device, SUFFIX_SHAPES)
+    print("phase 1f: the develop kernel's ablation ladder")
+    ladder_launches, ladder_errors, ladder_times = phase1f(device, BAYER, card)
+    errors.update(ladder_errors)
     print("phase 2: main paths")
     launches, scaled_launches = phase2(device, BAYER)
     print("phase 2c: the staged edit path, RenderService")
@@ -1958,10 +2064,10 @@ def main() -> int:
         del flat, thumbs
         counts = dict(develop=launches, develop_scaled=scaled_launches, rotate=rotate_launches,
                       develop_sp=sp_launches, suffix=suffix_launches, rotate_cfa=cfa_launches,
-                      **batch_counts)
+                      **ladder_launches, **batch_counts)
         print("phase 3: timing")
         times = phase3(device, BAYER, card)
-        times.update(phase3c(device, BAYER, card), **cfa_times)
+        times.update(phase3c(device, BAYER, card), **cfa_times, **ladder_times)
         print("phase 3b: timing the batch path")
         bayer_paths = [p for p in paths[:17] if p != paths[corrupt]]
         batch_times, single_mps = phase3b(device, bayer_paths, bayer_bases, card)
@@ -1972,8 +2078,9 @@ def main() -> int:
         times.update(phase3d(device, card))
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=counts[name], max_abs_err=errors[name], library_ms=None, **times[name])
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": counts[name], "max_abs_err": errors[name], "library_ms": None,
+         **times[name]}
         for name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -157,7 +157,8 @@ def build() -> Path:
 
 def _library():
     """The kernels' library, built if needed, with every entry point bound
-    (the develop kernels', kernels/rotate.py's and kernels/suffix.py's)."""
+    (the develop kernels', kernels/rotate.py's, kernels/suffix.py's and
+    kernels/variants.py's)."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -183,6 +184,8 @@ def _library():
                                           i, i, p, p]
         lib.suffix_launch.restype = i
         lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, p]
+        lib.develop_variant_launch.restype = i
+        lib.develop_variant_launch.argtypes = [p, i, i, i, p, i, i, i, i, i, p, p]
         _lib = lib
     return _lib
 

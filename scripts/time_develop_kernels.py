@@ -542,13 +542,14 @@ def _nvcc() -> str:
 
 def ptxas_report(csrc: Path, build_dir: Path) -> dict:
     """{kernel: 'N registers, ... bytes spill ..., M bytes smem'} from
-    `nvcc -Xptxas -v` on each kernel source (the develop kernels' and
-    rotate.cu), compiled with the package's own flags (one nvcc each, in
+    `nvcc -Xptxas -v` on each kernel source (the develop kernels', rotate.cu,
+    suffix.cu and develop_variants.cu), compiled with the package's own flags (one nvcc each, in
     parallel)."""
     flags = [f for f in kdev._NVCC_FLAGS]
     build_dir.mkdir(exist_ok=True)
     procs = []
-    for name in ("develop.cu", "develop_scaled.cu", "rotate.cu", "suffix.cu"):
+    for name in ("develop.cu", "develop_scaled.cu", "rotate.cu", "suffix.cu",
+                 "develop_variants.cu"):
         if not (csrc / name).exists():
             continue
         obj = build_dir / f"ptxas_{name}.{os.getpid()}.o"
@@ -578,8 +579,8 @@ def _demangle(name: str) -> str:
 
 def sass_counts(lib: Path) -> dict:
     """{kernel: {"instructions": static SASS instruction count, and the
-    count of each opcode in SASS_OPCODES}} of the develop and rotate
-    kernels in the built library (`cuobjdump -sass`); NOPs are not counted."""
+    count of each opcode in SASS_OPCODES}} of the develop, rotate, suffix
+    and variant kernels in the built library (`cuobjdump -sass`); NOPs are not counted."""
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -600,7 +601,7 @@ def sass_counts(lib: Path) -> dict:
                     c[name] += 1
     return {k: v for k, v in counts.items()
             if any(n in k for n in ("develop_kernel", "scaled_kernel", "rotate_kernel",
-                                    "suffix_kernel"))}
+                                    "suffix_kernel", "variant_kernel"))}
 
 
 def main() -> int:

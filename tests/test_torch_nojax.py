@@ -170,6 +170,12 @@ plan = make_develop_plan(tip.Pipeline.new_from_source(tip.ImageSource.from_raw(w
                          numerics="direct")
 sharded = kdev.develop_sp(plan, kdev.stage_sp(plan, wide.data, 3), ["cpu"] * 3)
 assert sharded.shape == (3, 24, 300)
+# The develop kernel's ablation ladder (its plain version on the CPU).
+import torch
+from imagepipe_tpu_torch.kernels import variants
+rung = variants.run_variant(torch.from_numpy(wide.data), variants.variant_scal(plan), height=24,
+                            width=300, variant="full", form="A")
+assert rung.shape == (3, 24, 300) and rung.dtype == torch.uint8
 # cameras' lazy `from .color import SRGB_D65_33` resolves to the port's module.
 m = cameras.xyz_to_cam_from_cam2srgb([[1, 0, 0], [0, 1, 0], [0, 0, 1]])
 assert m.shape == (4, 3)
