@@ -78,6 +78,22 @@ Phases, each ending in torch.cuda.synchronize():
      Pipeline(device="cuda").output_8bit with a cache at maxwidth 1 must
      be (0, 1, 3) uint8 and launch no kernel (no rotate, rotate_cfa or
      suffix launch);
+  2i. the staged edit path in 'lut' numerics (color.numerics_mode, the
+     process-wide override): a 24 MP Bayer DNG through RenderService(
+     device="cuda"), the first render (rotation 0.05 + crop_left 0.05) and
+     an exposure edit, from a freshly decoded file in each of four turns
+     ('direct', 'lut', 'lut', 'direct'; the turns of a mode bit-equal). In
+     'lut' each must launch the rotate kernel as in phase 2c and the
+     suffix kernel never (it computes 'direct' only, so the ops run their
+     `run`); in 'direct' it launches once a request. Each 'lut' request
+     must hold the contract against its 'direct' twin, and the same
+     requests on a 600x400 crop of the frame on the card against the CPU,
+     both 'lut'. After the context 'auto' is 'direct' again and an
+     exposure edit launches the suffix kernel once. Host ms of each
+     request to host pixels, beside the card. Then
+     engine.develop_batch_fn(plan) over B=4 24 MP Bayer planes on the card
+     against develop_batch (the batch engine's kernel) on the same plan,
+     within the contract;
   1c. the rotate kernel against its plain version: [4, 4000, 6000] f32
      (24 MP, as the staged path hands it to rotatecrop) rotated 0.05 with
      crop_left 0.05 (-> 5981x4458), rotated 0.1 with the same crop, rotated
@@ -206,6 +222,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
 import datetime
 import hashlib
 import json
@@ -222,6 +239,7 @@ import numpy as np
 import torch
 
 import imagepipe_tpu_torch as ipt
+from imagepipe_tpu_torch import color as tcc
 from imagepipe_tpu_torch import dng
 from imagepipe_tpu_torch import engine as tengine
 from imagepipe_tpu_torch import raw as traw
@@ -996,6 +1014,136 @@ def phase_empty(device, td) -> None:
     if any(counts.values()):
         raise AssertionError(f"empty output: launches {counts}, want none")
     print(f"  98x54 at maxwidth 1: {img.data.shape} {img.data.dtype}, launches {counts}")
+
+
+LUT_EDITS = EDITS[:2]                 # phase 2i: the first render and the exposure edit
+LUT_CROP = (600, 400)                 # phase 2i: the crop rendered on the card and the CPU
+LUT_PROFILED = (0.5, 0.6, 0.7)        # phase 2i: exposures tried in turn under the profiler
+
+
+def _profiled_edit(svc, edits, card) -> None:
+    """Edits of svc's "frame" under torch.profiler, stages not synchronized,
+    one (label, patch) of `edits` after another until a trace holds device
+    activity (the profiler at times records none); prints each trace's
+    device split and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, patch in edits:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            svc.edit("frame", patch)
+            pwall = (time.perf_counter() - t) * 1e3
+        split = _device_split(prof, pwall)
+        if split is None:
+            print(f"  {label} under torch.profiler ({pwall:.1f} ms): device split "
+                  f"not measured (the trace holds no device activity)")
+            continue
+        spans, busy = split
+        print(f"  {label} under torch.profiler ({pwall:.1f} ms wall): device ms "
+              f"{ {k: round(v, 3) for k, v in sorted(spans.items())} }, busy {busy:.3f} ms, "
+              f"idle share {1 - busy / pwall:.4f} (on {card})")
+        return
+
+
+def _lut_requests(device, source, mode, want_suffix, label, card) -> list:
+    """LUT_EDITS through a fresh RenderService(device) in numerics `mode`
+    (color.numerics_mode), each with the counts set to 0 just before; the
+    rotate kernel must launch as EDITS says, the suffix kernel
+    `want_suffix` times a request, nothing else (on CUDA); on CUDA one more
+    exposure edit (LUT_PROFILED) under torch.profiler gives the mode's
+    device split.
+    Returns the host outputs of LUT_EDITS."""
+    svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
+    svc.open_source("frame", source)
+    outs = []
+    with tcc.numerics_mode(mode):
+        for edit, patch, want_rotate, _, _ in LUT_EDITS:
+            _reset_counts()
+            t = time.perf_counter()
+            img = svc.edit("frame", patch)
+            ms = (time.perf_counter() - t) * 1e3
+            counts = _counts()
+            print(f"  {label}, '{mode}', edit '{edit}': {img.data.shape}, host wall {ms:.1f} ms "
+                  f"to host pixels (on {card}); launches {({k: v for k, v in counts.items() if v})}")
+            want = dict({k: 0 for k in counts}, rotate=want_rotate, suffix=want_suffix)
+            if device.type == "cuda" and counts != want:
+                raise AssertionError(f"'{mode}' edit '{edit}': launches {counts}, want {want}")
+            outs.append(img.data)
+        if device.type == "cuda":
+            _profiled_edit(svc, [(f"{label}, '{mode}', edit 'exposure +{e}'",
+                                  {"basecurve": {"exposure": e}}) for e in LUT_PROFILED], card)
+    del svc
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return outs
+
+
+def phase_lut(device, bayer, bases, card) -> None:
+    """2i: the staged edit path in 'lut' numerics on the card (the
+    process-wide override, color.numerics_mode): LUT_EDITS of a `bayer`
+    DNG through RenderService(device) in 'lut' (no suffix launch: the
+    kernel computes 'direct' only, so the ops run their `run`) against the
+    same requests in 'direct' (one suffix launch each), within the
+    contract, in turns ('direct', 'lut', 'lut', 'direct'), each from a
+    freshly decoded file (so each first render uploads the plane and
+    hashes the frame); the same requests on a LUT_CROP crop of the frame
+    on the card against the CPU, both 'lut'; after the context 'auto' is
+    'direct' again and a 'direct' edit launches the suffix kernel. Then
+    develop_batch_fn(plan) over `bases` on the card against the batch
+    kernel (the BatchEngine's route) for the same plan."""
+    raw = traw.synthetic_bayer(*bayer, seed=6)
+    outs = {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "lut.dng")
+        dng.write_dng(path, raw)
+        for mode in ("direct", "lut", "lut", "direct"):
+            got = _lut_requests(device, decode_file(path), mode, int(mode == "direct"),
+                                f"{bayer[0]}x{bayer[1]}", card)
+            if mode in outs and not all(np.array_equal(a, b) for a, b in zip(got, outs[mode])):
+                raise AssertionError(f"'{mode}': two turns differ")
+            outs[mode] = got
+    for (edit, *_), got, want in zip(LUT_EDITS, outs["lut"], outs["direct"]):
+        _check(f"'lut' vs 'direct', edit '{edit}'", got, want)
+    del outs
+
+    width, height = LUT_CROP
+    crop = ImageSource.from_raw(dataclasses.replace(
+        raw, width=width, height=height, data=np.ascontiguousarray(raw.data[:height, :width])))
+    on_card = _lut_requests(device, crop, "lut", 0, f"{width}x{height} crop", card)
+    on_cpu = _lut_requests(torch.device("cpu"), crop, "lut", 0, f"{width}x{height} crop",
+                           "the host CPU")
+    for (edit, *_), got, want in zip(LUT_EDITS, on_card, on_cpu):
+        _check(f"{width}x{height} crop, 'lut', edit '{edit}': {device.type} vs CPU", got, want)
+
+    if tcc._NUMERICS_MODE is not None or tcc.resolve_numerics("auto", device) != (
+            "lut" if device.type == "cpu" else "direct"):
+        raise AssertionError(f"after the context: override {tcc._NUMERICS_MODE!r}")
+    svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
+    svc.open_source("frame", crop)
+    svc.edit("frame", LUT_EDITS[0][1])
+    _reset_counts()
+    svc.edit("frame", {"basecurve": {"exposure": 0.4}})
+    counts = _counts()
+    print(f"  after the context: 'auto' on {device.type} is "
+          f"'{tcc.resolve_numerics('auto', device)}'; an exposure edit launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    if device.type == "cuda" and counts["suffix"] != 1:
+        raise AssertionError(f"'direct' edit after the context: launches {counts}")
+    del svc
+
+    plan = _plan(bases[0], 8, device)
+    planes = torch.stack([_upload(b, device) for b in bases])
+    _sync(device)
+    t = time.perf_counter()
+    got = tengine.develop_batch_fn(plan)(planes)
+    _sync(device)
+    ms = (time.perf_counter() - t) * 1e3
+    want = kdev.develop_batch([plan] * len(bases), planes)
+    _check(f"develop_batch_fn, B={len(bases)} x {bayer[0]}x{bayer[1]}, vs the batch kernel "
+           f"(host wall {ms:.1f} ms on {card})", got, want)
+    del planes, got, want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # -- the fleet: MultiHostBatchEngine in spawned ranks sharing the card --------
@@ -1843,8 +1991,6 @@ def phase2c(device, bayer, card) -> tuple[int, int]:
     """The staged edit path through RenderService, fused, then again with
     FUSE_SUFFIX = False, which must give the same pixels bit for bit;
     returns the rotate and suffix kernels' launches on the fused run."""
-    from torch.profiler import ProfilerActivity, profile
-
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "edit.dng")
         dng.write_dng(path, traw.synthetic_bayer(*bayer, seed=6))
@@ -1861,19 +2007,8 @@ def phase2c(device, bayer, card) -> tuple[int, int]:
             svc.edit("frame", patch)
 
         # One more edit under the profiler, stages not synchronized.
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            svc.edit("frame", {"rotatecrop": {"rotation": 0.07}})
-            pwall = (time.perf_counter() - t) * 1e3
-        split = _device_split(prof, pwall)
-        if split is None:
-            print(f"  edit 'rotation 0.07' under torch.profiler ({pwall:.1f} ms): device split "
-                  f"not measured (the trace holds no device activity)")
-        else:
-            spans, busy = split
-            print(f"  edit 'rotation 0.07' under torch.profiler ({pwall:.1f} ms wall): device ms "
-                  f"{ {k: round(v, 3) for k, v in sorted(spans.items())} }, busy {busy:.3f} ms, "
-                  f"idle share {1 - busy / pwall:.4f} (on {card})")
+        _profiled_edit(svc, [(f"edit 'rotation {r}'", {"rotatecrop": {"rotation": r}})
+                             for r in (0.07, 0.08, 0.09)], card)
         del svc
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -2058,6 +2193,8 @@ def main() -> int:
         phase_bands(device, BIG, card)
         print("phase 2h: a staged output with no pixels")
         phase_empty(device, td)
+        print("phase 2i: the staged edit path in 'lut' numerics, and develop_batch_fn")
+        phase_lut(device, BAYER, bayer_bases, card)
         print(f"phase 2e: the multi-process feed, {FLEET_RANKS} ranks of MultiHostBatchEngine "
               f"on one card")
         phase2e(device, paths, corrupt, flat, thumbs)

@@ -19,7 +19,9 @@ color_conversions, simple_decode_8bit, with MultiCache / PipelineCache,
 the camera registry (register_camera, register_alias, register_from_dng,
 register_sidecar_dir, known_cameras), from_rgb_str_vec, PipelineSettings/
 Globals/Ops, CFA, Orientation, RawImage, RasterImage; plus default_device.
-The batch engine is `parallel.BatchEngine`.
+The batch engine is `parallel.BatchEngine`. Each module has the public
+names of the JAX module of the same name, but those `_surface.NOT_PORTED`
+lists with the reason the port leaves them out.
 """
 
 from . import color as color_conversions

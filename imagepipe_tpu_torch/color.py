@@ -12,6 +12,12 @@ of any shape; the numerics mode is an explicit argument:
                 eager form must compute identical transcendental shapes:
                 mismatched forms exceed 10 LSB at 16-bit output.
 
+The staged ops resolve 'auto' through `resolve_numerics`: the process-wide
+override of `set_numerics_mode` / `numerics_mode` when one is set, else
+the buffer's device. The fused develop and the batch engine resolve
+through `device_numerics`, by device alone, as the JAX package's plans
+resolve by backend.
+
 Divisions by constants go through `_div`: CUDA turns `tensor / python
 float` into a multiply by the reciprocal, which is not IEEE division.
 """
@@ -23,7 +29,8 @@ import torch
 
 __all__ = [
     "SRGB_D65_33", "SRGB_D65_XYZ_WHITE", "XYZ_D65_33", "XYZ_D65_34",
-    "SRGB_D65_43", "TransformLUT", "resolve_numerics", "expand_srgb_gamma",
+    "SRGB_D65_43", "TransformLUT", "set_numerics_mode", "get_numerics_mode",
+    "numerics_mode", "device_numerics", "resolve_numerics", "expand_srgb_gamma",
     "apply_srgb_gamma", "xyz_to_lab", "lab_to_xyz", "camera_to_lab_planar",
     "lab_to_rgb_planar", "camera_to_lab", "lab_to_rgb", "temp_tint_to_rgb",
     "input8bit", "input16bit", "output8bit", "output16bit",
@@ -83,14 +90,72 @@ _MAXBITS = 13
 _LUT_MAX = (1 << _MAXBITS) - 1  # 8191
 
 
-def resolve_numerics(numerics: str, device) -> str:
-    """'auto' -> 'lut' on the CPU (reference-faithful tables), 'direct' on
-    CUDA (the develop kernel's form)."""
+# The process-wide numerics override (None: unset). The JAX package
+# resolves its unset mode once, from the backend; here an unset mode
+# resolves per device, so the override stays None until a caller sets it.
+_NUMERICS_MODE: str | None = None
+
+
+def set_numerics_mode(mode: str) -> None:
+    """Override 'auto' numerics for the staged ops and fused segments of
+    this process: 'lut' or 'direct'."""
+    global _NUMERICS_MODE
+    if mode not in ("lut", "direct"):
+        raise ValueError(f"unknown numerics mode {mode!r}")
+    _NUMERICS_MODE = mode
+
+
+def get_numerics_mode(device=None) -> str:
+    """The override when one is set, else what 'auto' resolves to on
+    `device` (None: 'cuda' when torch sees a CUDA device, else 'cpu', the
+    JAX package's default backend)."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return resolve_numerics("auto", device)
+
+
+class numerics_mode:
+    """Context manager setting the numerics override, restoring the
+    previous OVERRIDE on exit, "unset" included. The JAX package restores
+    its previous resolved mode ("never restore None"), harmless there
+    because its unset mode resolves to one backend value; here the unset
+    mode resolves per device, so restoring a resolved value would pin every
+    later 'auto' of the other device kind."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+
+    def __enter__(self):
+        global _NUMERICS_MODE
+        self._prev = _NUMERICS_MODE
+        set_numerics_mode(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        global _NUMERICS_MODE
+        _NUMERICS_MODE = self._prev
+        return False
+
+
+def device_numerics(numerics: str, device) -> str:
+    """'auto' -> 'lut' on the CPU (reference-faithful tables) and 'direct'
+    on CUDA (the kernels' form); 'lut' and 'direct' pass. The override is
+    not consulted: the fused develop plan and the batch engine resolve
+    here, as the JAX package's plans resolve by backend."""
     if numerics == "auto":
         return "lut" if torch.device(device).type == "cpu" else "direct"
     if numerics not in ("lut", "direct"):
         raise ValueError(f"unknown numerics mode {numerics!r}")
     return numerics
+
+
+def resolve_numerics(numerics: str, device) -> str:
+    """'auto' -> the override when one is set, else `device_numerics`;
+    'lut' and 'direct' pass. The staged ops and fused segments resolve
+    here, where the JAX package consults `get_numerics_mode()`."""
+    if numerics == "auto" and _NUMERICS_MODE is not None:
+        return _NUMERICS_MODE
+    return device_numerics(numerics, device)
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:

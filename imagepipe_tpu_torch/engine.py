@@ -18,7 +18,8 @@ and 'lut' plans. `develop_fused(plan, plane, bands)` develops a frame over
 30 MP in row bands with 1-row halos, as the JAX package does, bit-equal to
 the unbanded develop and with a lower peak of device memory.
 `develop_batch_perimage` develops a batch of one shape class with per-image
-calibration, the batch engine's eager executor (parallel/batch.py), and
+calibration, the batch engine's eager executor (parallel/batch.py);
+`develop_batch_fn(plan)` is its closure over one plan's calibration; and
 `develop_batch_perimage_sp` the same batch width-sharded across a row of
 devices.
 """
@@ -42,6 +43,7 @@ from .spline import SplineFunc, eval_spline_arrays
 
 __all__ = ["DevelopPlan", "make_develop_plan", "plan_from_jax",
            "develop_fused", "auto_bands", "develop_batch_perimage",
+           "develop_batch_fn", "stack_params", "normalize_plane",
            "develop_batch_perimage_sp", "stage_perimage_sp", "sp_spans",
            "finish_planes", "normalize_plane_np", "planar_to_hwc"]
 
@@ -162,7 +164,7 @@ def make_develop_plan(pipeline, out_bits: int = 8, numerics: str = "auto",
         out_bits=out_bits, linear=settings.linear and out_bits == 16,
         params=_tensors(arrays, device), apply_curve=apply_curve,
         n_knots=n_knots, orientation_flips=ops.transform._orientation().to_flips(),
-        numerics=cc.resolve_numerics(numerics, device), device=device,
+        numerics=cc.device_numerics(numerics, device), device=device,
         dem_path=dem_path, dem_w=dem_w, dem_h=dem_h)
 
 
@@ -343,6 +345,34 @@ def develop_batch_perimage(plans, planes: torch.Tensor) -> torch.Tensor:
     if any(p.statics() != statics for p in plans[1:]):
         raise ValueError("develop_batch_perimage: the plans of a batch must share their statics")
     return torch.stack([_develop_one(p, planes[i], p.numerics) for i, p in enumerate(plans)])
+
+
+def develop_batch_fn(plan: DevelopPlan):
+    """fn(planes) -> quantized planar [B, 3, H', W']: the batched develop of
+    planes [B, H, W] (or rgb [B, H, W*3] / [B, H, W, 3]) with this one
+    plan's calibration for every image, as the JAX package vmaps one plan's
+    params (engine.py:411-422 there). The eager engine on the plan's device
+    (`develop_batch_perimage`); planes elsewhere are copied there. On CUDA
+    it launches no develop kernel, even for a plan the kernel takes: the
+    kernel route for a batch is `parallel.BatchEngine` or
+    `kernels.develop.develop_batch`."""
+
+    def fn(planes) -> torch.Tensor:
+        planes = torch.as_tensor(planes, device=plan.device)
+        if plan.mode == "rgb" and planes.dim() == 3:
+            planes = planes.reshape(planes.shape[0], planes.shape[1], -1, 3)
+        return develop_batch_perimage([plan] * planes.shape[0], planes)
+
+    return fn
+
+
+def stack_params(param_dicts) -> dict:
+    """Stack a list of per-image param dicts key by key: tensors into one
+    tensor (the port's plans hold tensors), anything else into a numpy
+    array."""
+    return {k: (torch.stack([d[k] for d in param_dicts]) if torch.is_tensor(v)
+                else np.stack([np.asarray(d[k]) for d in param_dicts]))
+            for k, v in param_dicts[0].items()}
 
 
 # -- the width-sharded eager develop -----------------------------------------

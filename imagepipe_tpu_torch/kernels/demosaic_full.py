@@ -5,7 +5,8 @@ Counterpart of `imagepipe_tpu/kernels/demosaic_full.py` (the reference's
 drives nine shifted whole-image accumulations in the reference's offset
 order, so the sums are formed term for term as in the JAX package. This is
 the plain form; the CUDA develop kernel (kernels/develop.py) computes the
-same rule per pixel.
+same rule per pixel. `demosaic_full` is the staged op's demosaic of an
+`OpBuffer`, `stencil_demosaic` the stacked [H, W, 4] form.
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..buffer import OpBuffer
 from ..raw import CFA, PATTERN_TILE
 
-__all__ = ["OFFSETS_3X3", "neighbor_color_lookup", "stencil_demosaic_planes",
-           "stencil_demosaic_shard"]
+__all__ = ["OFFSETS_3X3", "demosaic_full", "neighbor_color_lookup", "stencil_demosaic",
+           "stencil_demosaic_planes", "stencil_demosaic_shard"]
 
 # 3x3 neighbourhood offsets in the reference's order (demosaic.rs:70-74).
 OFFSETS_3X3 = [(-1, -1), (-1, 0), (-1, 1),
@@ -58,6 +60,21 @@ def stencil_demosaic_planes(plane: torch.Tensor, cfa_name: str, height: int,
     its valid neighbours (edges: out-of-image neighbours do not count); the
     centre's own colour takes the centre sample; no neighbour gives 0."""
     return stencil_demosaic_shard(F.pad(plane, (1, 1)), cfa_name, height, width, 0)
+
+
+def stencil_demosaic(plane: torch.Tensor, cfa_name: str, height: int, width: int,
+                     stacked: bool = True):
+    """[H,W] f32 levels plane -> [H,W,4] RGBE, or with stacked=False the
+    four [H,W] planes of `stencil_demosaic_planes`."""
+    planes = stencil_demosaic_planes(plane, cfa_name, height, width)
+    return torch.stack(planes, dim=-1) if stacked else planes
+
+
+def demosaic_full(cfa: CFA, buf: OpBuffer) -> OpBuffer:
+    """A CFA single-plane buffer -> its 4-colour RGBE buffer at full
+    resolution (planar [4, H, W])."""
+    planes = stencil_demosaic_planes(buf.data[0], cfa.name, buf.height, buf.width)
+    return OpBuffer(buf.width, buf.height, 4, buf.monochrome, torch.stack(planes))
 
 
 def stencil_demosaic_shard(local: torch.Tensor, cfa_name: str, height: int,

@@ -64,7 +64,7 @@ __all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
            "develop_sp", "develop_sp_plain", "develop_sp_batch", "develop_sp_batch_plain",
            "sp_shards", "stage_sp", "stage_columns", "exchange_halos", "assemble",
            "develop_shard",
-           "kernel_supported", "calib_tables", "batch_tables", "demosaic_phases",
+           "kernel_supported", "spline_stride", "calib_tables", "batch_tables", "demosaic_phases",
            "develop_smem_bytes", "division_mismatches", "upload", "apply_flips", "build",
            "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
            "BATCH_LAUNCHES", "SP_LAUNCHES", "MAX_PATTERN", "MAX_SMEM", "MAX_LSB",
@@ -203,6 +203,13 @@ def kernel_supported(plan) -> bool:
     return cfa.is_valid() and max(cfa.height, cfa.width) <= MAX_PATTERN
 
 
+def spline_stride(plan) -> int:
+    """Columns of the plan's spline table (`calib_tables`): the knots
+    rounded up to a multiple of 8, at least 16."""
+    n_knots = plan.n_knots if plan.apply_curve else 0
+    return max(16, -(-n_knots // 8) * 8)
+
+
 def calib_tables(plan):
     """(scal [8,16], spline [5,>=16], n_knots) float32: the per-image
     calibration packed as the Pallas kernel receives it
@@ -216,7 +223,7 @@ def calib_tables(plan):
     scal[5:8, :3] = p["rgbmatrix"]
 
     n_knots = plan.n_knots if plan.apply_curve else 0
-    spline = np.zeros((5, max(16, -(-n_knots // 8) * 8)), np.float32)
+    spline = np.zeros((5, spline_stride(plan)), np.float32)
     if plan.apply_curve:
         spline[0, :n_knots] = p["spline_xs"]
         spline[1, :n_knots] = p["spline_ys"]

@@ -28,6 +28,13 @@ is shared, the calibration each image's own. It replaces
 * Its launch plan (`scaled_plan`) splits each output pixel's window across
   `window_split` lanes of one warp where windows are large, and fixes the
   block's tile of output pixels; both follow from the geometry alone.
+* `scaled_plan_for(plan)` records the two as one `ScaledPlan` (None
+  where the JAX package's is None), which `develop_scaled(plan, plane,
+  sp)` accepts and checks against the plan, as the JAX signature has it;
+  planning it fills the plan's memos, so the launch plans nothing anew. The JAX
+  package's `stage_scaled_np` and `staged_scaled_cached` pad planes for
+  the TPU's tiles; this kernel reads the uncropped plane, so they have no
+  counterpart (`imagepipe_tpu_torch._surface.NOT_PORTED`).
 * `LAUNCHES` counts the launches of `develop_scaled` and `BATCH_LAUNCHES`
   those of `develop_scaled_batch`. The library is built and bound by
   kernels/develop.py, with the full-size kernel.
@@ -54,6 +61,7 @@ from . import develop as kdev
 __all__ = ["develop_scaled", "develop_scaled_plain", "develop_scaled_batch",
            "develop_scaled_batch_plain", "scaled_supported", "scaled_geometry",
            "ScaledLaunchPlan", "window_split", "scaled_smem_bytes", "scaled_plan",
+           "ScaledPlan", "scaled_plan_for",
            "LAUNCHES", "BATCH_LAUNCHES", "THREADS"]
 
 # Kernel launches by `develop_scaled` and by `develop_scaled_batch` since
@@ -166,6 +174,48 @@ def scaled_plan(plan, spline_stride: int) -> ScaledLaunchPlan:
     return launch
 
 
+@dataclass(frozen=True)
+class ScaledPlan:
+    """The host plan of one 'scaled' shape class (height, width, dem_h,
+    dem_w, cfa_name): its downscale geometry (`scaled_geometry`'s tables,
+    on the host) and the kernel's launch plan over it (`scaled_plan`), for
+    plans with a spline table `spline_stride` columns wide. A record: the
+    launch reads the plan's own memoized geometry and launch plan, which
+    are these."""
+    key: tuple
+    geometry: dict
+    launch: ScaledLaunchPlan
+    spline_stride: int
+
+    def check(self, plan) -> None:
+        """Raise unless this plan's shape class and spline table are the
+        plan's."""
+        want = (_shape_class(plan), kdev.spline_stride(plan))
+        if (self.key, self.spline_stride) != want:
+            raise ValueError(f"develop_scaled kernel: ScaledPlan of {self.key} (spline "
+                             f"stride {self.spline_stride}) for a plan of {want[0]} "
+                             f"(spline stride {want[1]})")
+
+
+def _shape_class(plan) -> tuple:
+    return (plan.height, plan.width, plan.dem_h, plan.dem_w, plan.cfa_name)
+
+
+def scaled_plan_for(plan) -> ScaledPlan | None:
+    """The ScaledPlan of a 'scaled' cfa plan, or None where the JAX package
+    returns None for its kernel: not 'cfa', not 'scaled', or an output 1
+    wide or high. The JAX package also returns None for windows outside
+    its kernel's VMEM envelope; this kernel takes every window that fits
+    its shared memory (`scaled_plan` raises beyond that)."""
+    if plan.mode != "cfa" or plan.dem_path != "scaled":
+        return None
+    if plan.dem_h <= 1 or plan.dem_w <= 1:
+        return None
+    stride = kdev.spline_stride(plan)
+    return ScaledPlan(_shape_class(plan), _host_geometry(plan), scaled_plan(plan, stride),
+                      stride)
+
+
 def develop_scaled_plain(plan, plane: torch.Tensor) -> torch.Tensor:
     """The kernel's computation in plain PyTorch, on the plane's device."""
     return _develop_one(plan, plane, "direct")
@@ -209,10 +259,14 @@ def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots) 
     return out
 
 
-def develop_scaled(plan, plane: torch.Tensor) -> torch.Tensor:
+def develop_scaled(plan, plane: torch.Tensor, sp: ScaledPlan | None = None) -> torch.Tensor:
     """Develop the uncropped sensor plane [H0, W0] (u16 or f32) of a
     'scaled' cfa plan -> quantized planar [3, dem_h, dem_w] u8/u16, flipped
-    to the plan's orientation."""
+    to the plan's orientation. `sp`, the shape class's `scaled_plan_for`,
+    is checked against the plan; the launch reads the plan's own memoized
+    geometry, which `sp` records."""
+    if sp is not None:
+        sp.check(plan)
     if plane.device.type == "cpu":
         return develop_scaled_plain(plan, plane)
     _check_kernel(plan, plane.device)

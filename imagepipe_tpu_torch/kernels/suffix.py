@@ -20,6 +20,8 @@ and the final quantize, in one launch of csrc/suffix.cu, and returns
   n - 1 long and padded), from_lab (the XYZ->RGB matrix [3, 3]), gamma
   (), transform (transpose, flip_x, flip_y). The kernel takes them as one
   float32 table (`pack_params`), one small pinned upload per launch.
+* Under a 'lut' numerics override (`color.numerics_mode`) a segment on
+  CUDA does not fuse (`fuses`): the pipeline runs its ops' `run`.
 * `LAUNCHES` counts the kernel's launches. The library is built and bound
   by kernels/develop.py, with the other kernels.
 
@@ -95,6 +97,16 @@ def _stage_plain(stage: str, x: torch.Tensor, p, numerics: str) -> torch.Tensor:
     if stage == "gamma":
         return cc.apply_srgb_gamma(torch.clamp(x, 0.0, 1.0), numerics)
     return kdev.apply_flips(x, p)
+
+
+def fuses(device) -> bool:
+    """Whether a segment on `device` runs fused in the numerics its ops
+    resolve (`color.resolve_numerics`, the override included): on the CPU
+    always (the plain version computes either), on CUDA only in 'direct'
+    (the kernel's only form). Where it does not, the pipeline runs the
+    segment's ops' `run` in turn, launching nothing."""
+    device = torch.device(device)
+    return device.type == "cpu" or cc.resolve_numerics("auto", device) == "direct"
 
 
 def suffix_plain(data: torch.Tensor, stages, params, quant=None, keep=None,

@@ -9,13 +9,11 @@ the full-resolution 3x3 stencil demosaic, then a downscale if asked.
 
 from __future__ import annotations
 
-import torch
-
 from .base import ImageOp
 from .. import hasher
 from .. import scaling
 from ..buffer import OpBuffer
-from ..kernels.demosaic_full import stencil_demosaic_planes
+from ..kernels.demosaic_full import demosaic_full
 from ..raw import CFA
 
 __all__ = ["OpDemosaic", "minscale_for"]
@@ -56,8 +54,7 @@ class OpDemosaic(ImageOp):
             return scaling.scale_down_opbuf(buf, nwidth, nheight)
         if scale >= minscale_for(cfa.width):
             return scaling.scaled_demosaic(cfa, buf, nwidth, nheight)
-        fullsize = OpBuffer(buf.width, buf.height, 4, buf.monochrome, torch.stack(
-            stencil_demosaic_planes(buf.data[0], cfa.name, buf.height, buf.width)))
+        fullsize = demosaic_full(cfa, buf)
         if scale > 1.0:
             return scaling.scale_down_opbuf(fullsize, nwidth, nheight)
         return fullsize

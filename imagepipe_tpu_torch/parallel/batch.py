@@ -167,7 +167,7 @@ class BatchEngine:
             raise ValueError(f"devices {self.devices}: one or more of one type")
         self.spatial = spatial
         # 'direct' numerics on CUDA (the kernels' form), 'lut' on the CPU.
-        self.numerics = cc.resolve_numerics("auto", self.devices[0])
+        self.numerics = cc.device_numerics("auto", self.devices[0])
         self.out_bits = out_bits
         self.max_batch = max_batch
         self.decode_workers = (default_decode_workers() if decode_workers is None

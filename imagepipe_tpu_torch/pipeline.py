@@ -25,7 +25,9 @@ hashing and serials are byte-identical to the JAX package's. The routing of
   (kernels/suffix.py), bit-equal to running the ops' `run` in turn, every
   stage still cached. The other ops run their `run`; a rotated frame's
   rotatecrop launches the rotate kernel on CUDA (kernels/rotate.py).
-  `FUSE_SUFFIX = False` runs every op's `run` instead.
+  `FUSE_SUFFIX = False` runs every op's `run` instead, and so does a
+  'lut' numerics override (`color.numerics_mode`) on CUDA, where the
+  kernel, 'direct' only, cannot take a segment.
 
 A Pipeline develops on one device, chosen when it is made: `device=None`
 is `default_device()`, the first CUDA device; the CPU only when asked for.
@@ -133,8 +135,8 @@ class PipelineSettings:
                 + hasher.pack_u64(self.demosaic_height)
                 + hasher.pack_bool(self.linear) + hasher.pack_bool(self.use_fastpath))
 
-    def hash(self, h: BufHasher) -> None:
-        h.from_serialize(self)
+    def hash(self, hasher: BufHasher) -> None:
+        hasher.from_serialize(self)
 
 
 @dataclasses.dataclass
@@ -318,10 +320,13 @@ class Pipeline:
         """Run ops[startpos:], caching each stage's result under its chain
         hash (pipeline.rs:354-372). Each maximal run of joining ops fuses
         into one segment when that saves a launch: two or more real stages,
-        or one at the chain's end with the quantize joining. A declining op
-        (an active rotatecrop) runs its `run`, and fusion starts again
-        after it. Records the host ms of each stage or segment (keyed by
-        the segment's op names joined by '+'). Returns (final OpBuffer,
+        or one at the chain's end with the quantize joining, and the
+        segment's device runs it in the numerics its ops resolve
+        (`ksuffix.fuses`: not the kernel under a 'lut' override on CUDA,
+        where the ops run their `run`). A declining op (an active
+        rotatecrop) runs its `run`, and fusion starts again after it.
+        Records the host ms of each stage or segment (keyed by the
+        segment's op names joined by '+'). Returns (final OpBuffer,
         quantized tensor or None)."""
         self.stage_ms = {}
         sync = log.isEnabledFor(logging.DEBUG)
@@ -329,7 +334,8 @@ class Pipeline:
         i, n = startpos, len(ops)
         while i < n:
             start = time.perf_counter()
-            chains = self._chains(ops, i, bufin) if FUSE_SUFFIX else []
+            fuse = FUSE_SUFFIX and ksuffix.fuses(bufin.data.device)
+            chains = self._chains(ops, i, bufin) if fuse else []
             j = i + len(chains)
             real = sum(c[1] is not None for c in chains)
             if real >= 2 or (j == n and final_quant and real >= 1):
