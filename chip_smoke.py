@@ -82,15 +82,18 @@ Phases, each ending in torch.cuda.synchronize():
      process-wide override): a 24 MP Bayer DNG through RenderService(
      device="cuda"), the first render (rotation 0.05 + crop_left 0.05) and
      an exposure edit, from a freshly decoded file in each of four turns
-     ('direct', 'lut', 'lut', 'direct'; the turns of a mode bit-equal). In
-     'lut' each must launch the rotate kernel as in phase 2c and the
-     suffix kernel never (it computes 'direct' only, so the ops run their
-     `run`); in 'direct' it launches once a request. Each 'lut' request
-     must hold the contract against its 'direct' twin, and the same
-     requests on a 600x400 crop of the frame on the card against the CPU,
-     both 'lut'. After the context 'auto' is 'direct' again and an
-     exposure edit launches the suffix kernel once. Host ms of each
-     request to host pixels, beside the card. Then
+     ('direct', 'lut', 'lut', 'direct'; the turns of a mode bit-equal). Each
+     must launch the rotate kernel as in phase 2c and the suffix kernel
+     once, in the mode's form (`suffix_lut` in 'lut', `suffix` in
+     'direct'), and nothing else; one more exposure edit a turn runs under
+     torch.profiler for the device split, and two more with each stage
+     synchronized, fused and per stage (FUSE_SUFFIX = False, the ops'
+     `run`), their host ms printed. Each 'lut' request must hold the
+     contract against its 'direct' twin, and the same requests on a
+     600x400 crop of the frame on the card against the CPU, both 'lut'.
+     After the context 'auto' is 'direct' again and an exposure edit
+     launches the 'direct' form once. Host ms of each request to host
+     pixels, beside the card. Then
      engine.develop_batch_fn(plan) over B=4 24 MP Bayer planes on the card
      against develop_batch (the batch engine's kernel) on the same plan,
      within the contract;
@@ -143,7 +146,21 @@ Phases, each ending in torch.cuda.synchronize():
      stage output kept and with only the last; a monochrome frame from
      to_lab. The inputs: a [4, H, W] plane over [-0.1, 1.2) and the plain
      stages' outputs on it (values below 0 and above 1), each with 3000
-     each of NaN, +Inf and -Inf planted. One launch per segment;
+     each of NaN, +Inf and -Inf planted. One launch per segment. Then the
+     same cases in 'lut' numerics (the kernel's 'lut' form, color.
+     TransformLUT's table lookups with their out-of-range fallback) on the
+     5981x4458 frame, against the plain version in 'lut', with the count
+     of lookups that took the fallback;
+  1g. the develop kernels' stage_limit cuts (finish.cuh develop_rgb<k>:
+     the back end stopped after the demosaic, Lab or the spline, quantized
+     without gamma; the JAX package's _finish_tile(stage_limit) knob):
+     develop(plan, plane, stage_limit=k) on 24 MP Bayer 8-bit and 16-bit
+     linear and 26 MP X-Trans, develop_scaled(..., stage_limit=k) on 24 MP
+     Bayer to 1024 and to 160, k = 1, 2, 3, one launch each counted in
+     CUT_LAUNCHES[k] and nothing else, each within the contract of its
+     plain version; then each cut and the whole kernel timed at 24 MP
+     Bayer 8-bit (full size and -> 1024), and the split of the kernel's
+     time printed: up to the demosaic, Lab, spline, Lab^-1 + gamma;
   1f. the develop kernel's ablation ladder (kernels/variants.py::
      run_variant, csrc/develop_variants.cu, the port of the TPU experiments
      scripts/exp_kernel_variants.py and exp_kernel_variants3.py): every
@@ -185,7 +202,8 @@ Phases, each ending in torch.cuda.synchronize():
      three 24 MP geometries of phase 1c; the suffix kernel the same way
      from each segment start on the two frames of phase 1e (8-bit, every
      stage kept), beside the device ms of the eager stages it replaces on
-     the same inputs; plain versions one call from idle, median of 5; the
+     the same inputs, and its 'lut' form from to_lab on the 5981x4458
+     frame beside the eager stages in 'lut'; plain versions one call from idle, median of 5; the
      host wall time and breakdown of a cached 1024-px request; the edit
      requests of phase 2c (first render, exposure edit, rotation edit) to
      host pixels, per-stage (FUSE_SUFFIX = False) and fused in turns; the
@@ -210,12 +228,14 @@ Phases, each ending in torch.cuda.synchronize():
      beside the unsharded develop (the timing script's method); the plain
      version one call from idle.
 
-It prints a JSON line of per-kernel results (launches on the main path,
-max |diff| against the plain version, times, and the bound: the least time
-the card could take, from the bytes and float32 operations of this run's
-shapes), then, as its last line, {"ok": true, "device": {...}}. It exits
-non-zero, printing no result, when there is no CUDA device or any phase
-fails.
+Each phase prints its wall when it ends. It prints a JSON line of
+per-kernel results (launches on the main path, max |diff| against the
+plain version, times, and the bound: the least time the card could take,
+from the bytes and float32 operations of this run's shapes; the
+`suffix_lut` row is the suffix kernel's 'lut' form on phase 2i's path, the
+`develop_cut{k}` and `develop_scaled_cut{k}` rows the cuts of phase 1g),
+then, as its last line, {"ok": true, "device": {...}}. It exits non-zero,
+printing no result, when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
@@ -350,16 +370,21 @@ def _reset_counts():
     kdev.LAUNCHES = kdev.BATCH_LAUNCHES = kdev.SP_LAUNCHES = 0
     kds.LAUNCHES = kds.BATCH_LAUNCHES = 0
     krot.LAUNCHES = krot.DIRECT_LAUNCHES = krot.CFA_LAUNCHES = krot.CFA_DIRECT_LAUNCHES = 0
-    ksuf.LAUNCHES = 0
+    ksuf.LAUNCHES = ksuf.LUT_LAUNCHES = 0
     kv.VARIANT_LAUNCHES.update(A=0, B=0)
+    for cuts in (kdev.CUT_LAUNCHES, kds.CUT_LAUNCHES):
+        cuts.update(dict.fromkeys(cuts, 0))
 
 
 def _counts() -> dict:
     return {"develop": kdev.LAUNCHES, "develop_scaled": kds.LAUNCHES,
             "develop_batch": kdev.BATCH_LAUNCHES, "develop_scaled_batch": kds.BATCH_LAUNCHES,
             "rotate": krot.LAUNCHES, "develop_sp": kdev.SP_LAUNCHES, "suffix": ksuf.LAUNCHES,
+            "suffix_lut": ksuf.LUT_LAUNCHES,
             "rotate_cfa": krot.CFA_LAUNCHES, "develop_variants": kv.VARIANT_LAUNCHES["A"],
-            "develop_variants3": kv.VARIANT_LAUNCHES["B"]}
+            "develop_variants3": kv.VARIANT_LAUNCHES["B"],
+            **{f"develop_cut{k}": n for k, n in kdev.CUT_LAUNCHES.items()},
+            **{f"develop_scaled_cut{k}": n for k, n in kds.CUT_LAUNCHES.items()}}
 
 
 def _upload(raw, device):
@@ -1019,6 +1044,8 @@ def phase_empty(device, td) -> None:
 LUT_EDITS = EDITS[:2]                 # phase 2i: the first render and the exposure edit
 LUT_CROP = (600, 400)                 # phase 2i: the crop rendered on the card and the CPU
 LUT_PROFILED = (0.5, 0.6, 0.7)        # phase 2i: exposures tried in turn under the profiler
+LUT_SYNCED = (0.8, 0.9)               # phase 2i: exposures of the synchronized edits, fused
+                                      # and per stage
 
 
 def _profiled_edit(svc, edits, card) -> None:
@@ -1045,17 +1072,43 @@ def _profiled_edit(svc, edits, card) -> None:
         return
 
 
-def _lut_requests(device, source, mode, want_suffix, label, card) -> list:
+def _synced_edits(svc, pipe, label, card) -> None:
+    """An exposure edit of LUT_SYNCED fused, then one per stage
+    (pipeline.FUSE_SUFFIX = False: each op's `run`), with the package's
+    logger at DEBUG so that each stage or fused segment ends in a
+    synchronize; prints each one's host ms (device time included). The
+    profiler's traces of these edits are at times empty; these spans are
+    not."""
+    import logging
+
+    pkg_log = logging.getLogger("imagepipe_tpu_torch")
+    old_level, old_fuse = pkg_log.level, ppl.FUSE_SUFFIX
+    pkg_log.setLevel(logging.DEBUG)
+    try:
+        for fuse, exposure in zip((True, False), LUT_SYNCED):
+            ppl.FUSE_SUFFIX = fuse
+            svc.edit("frame", {"basecurve": {"exposure": exposure}})
+            ms = {k: round(v, 3) for k, v in pipe.stage_ms.items()}
+            print(f"  {label}, edit 'exposure +{exposure}' {'fused' if fuse else 'per stage'}, "
+                  f"each stage synchronized: host ms {ms}, sum {sum(ms.values()):.3f} (on {card})")
+    finally:
+        pkg_log.setLevel(old_level)
+        ppl.FUSE_SUFFIX = old_fuse
+
+
+def _lut_requests(device, source, mode, label, card) -> tuple[list, int]:
     """LUT_EDITS through a fresh RenderService(device) in numerics `mode`
     (color.numerics_mode), each with the counts set to 0 just before; the
-    rotate kernel must launch as EDITS says, the suffix kernel
-    `want_suffix` times a request, nothing else (on CUDA); on CUDA one more
-    exposure edit (LUT_PROFILED) under torch.profiler gives the mode's
-    device split.
-    Returns the host outputs of LUT_EDITS."""
+    rotate kernel must launch as EDITS says, the suffix kernel once a
+    request in the mode's form (`suffix` or `suffix_lut`), nothing else (on
+    CUDA); on CUDA one more exposure edit (LUT_PROFILED) under
+    torch.profiler gives the mode's device split, and `_synced_edits` the
+    fused segment's and the per-stage loop's synchronized ms.
+    Returns (the host outputs of LUT_EDITS, their 'lut' suffix launches)."""
     svc = RenderService(cache_bytes=EDIT_CACHE_BYTES, device=device)
-    svc.open_source("frame", source)
-    outs = []
+    pipe = svc.open_source("frame", source).pipeline
+    outs, lut_launches = [], 0
+    form = "suffix_lut" if mode == "lut" else "suffix"
     with tcc.numerics_mode(mode):
         for edit, patch, want_rotate, _, _ in LUT_EDITS:
             _reset_counts()
@@ -1065,40 +1118,44 @@ def _lut_requests(device, source, mode, want_suffix, label, card) -> list:
             counts = _counts()
             print(f"  {label}, '{mode}', edit '{edit}': {img.data.shape}, host wall {ms:.1f} ms "
                   f"to host pixels (on {card}); launches {({k: v for k, v in counts.items() if v})}")
-            want = dict({k: 0 for k in counts}, rotate=want_rotate, suffix=want_suffix)
+            want = dict({k: 0 for k in counts}, rotate=want_rotate, **{form: 1})
             if device.type == "cuda" and counts != want:
                 raise AssertionError(f"'{mode}' edit '{edit}': launches {counts}, want {want}")
             outs.append(img.data)
+            lut_launches += counts["suffix_lut"]
         if device.type == "cuda":
             _profiled_edit(svc, [(f"{label}, '{mode}', edit 'exposure +{e}'",
                                   {"basecurve": {"exposure": e}}) for e in LUT_PROFILED], card)
-    del svc
+            _synced_edits(svc, pipe, f"{label}, '{mode}'", card)
+    del svc, pipe
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return outs
+    return outs, lut_launches
 
 
-def phase_lut(device, bayer, bases, card) -> None:
+def phase_lut(device, bayer, bases, card) -> int:
     """2i: the staged edit path in 'lut' numerics on the card (the
     process-wide override, color.numerics_mode): LUT_EDITS of a `bayer`
-    DNG through RenderService(device) in 'lut' (no suffix launch: the
-    kernel computes 'direct' only, so the ops run their `run`) against the
-    same requests in 'direct' (one suffix launch each), within the
-    contract, in turns ('direct', 'lut', 'lut', 'direct'), each from a
-    freshly decoded file (so each first render uploads the plane and
-    hashes the frame); the same requests on a LUT_CROP crop of the frame
-    on the card against the CPU, both 'lut'; after the context 'auto' is
-    'direct' again and a 'direct' edit launches the suffix kernel. Then
-    develop_batch_fn(plan) over `bases` on the card against the batch
-    kernel (the BatchEngine's route) for the same plan."""
+    DNG through RenderService(device) in 'lut' (one launch of the suffix
+    kernel's 'lut' form each) against the same requests in 'direct' (one
+    launch of its 'direct' form each), within the contract, in turns
+    ('direct', 'lut', 'lut', 'direct'), each from a freshly decoded file
+    (so each first render uploads the plane and hashes the frame); the
+    same requests on a LUT_CROP crop of the frame on the card against the
+    CPU, both 'lut'; after the context 'auto' is 'direct' again and a
+    'direct' edit launches the 'direct' form. Then develop_batch_fn(plan)
+    over `bases` on the card against the batch kernel (the BatchEngine's
+    route) for the same plan. Returns the 'lut' requests' launches of the
+    'lut' form."""
     raw = traw.synthetic_bayer(*bayer, seed=6)
-    outs = {}
+    outs, lut_launches = {}, 0
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "lut.dng")
         dng.write_dng(path, raw)
         for mode in ("direct", "lut", "lut", "direct"):
-            got = _lut_requests(device, decode_file(path), mode, int(mode == "direct"),
-                                f"{bayer[0]}x{bayer[1]}", card)
+            got, n = _lut_requests(device, decode_file(path), mode, f"{bayer[0]}x{bayer[1]}",
+                                   card)
+            lut_launches += n
             if mode in outs and not all(np.array_equal(a, b) for a, b in zip(got, outs[mode])):
                 raise AssertionError(f"'{mode}': two turns differ")
             outs[mode] = got
@@ -1109,9 +1166,10 @@ def phase_lut(device, bayer, bases, card) -> None:
     width, height = LUT_CROP
     crop = ImageSource.from_raw(dataclasses.replace(
         raw, width=width, height=height, data=np.ascontiguousarray(raw.data[:height, :width])))
-    on_card = _lut_requests(device, crop, "lut", 0, f"{width}x{height} crop", card)
-    on_cpu = _lut_requests(torch.device("cpu"), crop, "lut", 0, f"{width}x{height} crop",
-                           "the host CPU")
+    on_card, n = _lut_requests(device, crop, "lut", f"{width}x{height} crop", card)
+    lut_launches += n
+    on_cpu, _ = _lut_requests(torch.device("cpu"), crop, "lut", f"{width}x{height} crop",
+                              "the host CPU")
     for (edit, *_), got, want in zip(LUT_EDITS, on_card, on_cpu):
         _check(f"{width}x{height} crop, 'lut', edit '{edit}': {device.type} vs CPU", got, want)
 
@@ -1127,7 +1185,7 @@ def phase_lut(device, bayer, bases, card) -> None:
     print(f"  after the context: 'auto' on {device.type} is "
           f"'{tcc.resolve_numerics('auto', device)}'; an exposure edit launches "
           f"{({k: v for k, v in counts.items() if v})}")
-    if device.type == "cuda" and counts["suffix"] != 1:
+    if device.type == "cuda" and (counts["suffix"], counts["suffix_lut"]) != (1, 0):
         raise AssertionError(f"'direct' edit after the context: launches {counts}")
     del svc
 
@@ -1144,6 +1202,7 @@ def phase_lut(device, bayer, bases, card) -> None:
     del planes, got, want
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return lut_launches
 
 
 # -- the fleet: MultiHostBatchEngine in spawned ranks sharing the card --------
@@ -1749,16 +1808,17 @@ def phase2f(device, card) -> tuple[int, dict]:
                                                                        t["bound_by"]))
 
 
-def _suffix_inputs(device, shape, seed) -> list:
+def _suffix_inputs(device, shape, seed, numerics="direct") -> list:
     """The inputs of phase 1e's segments on a width x height frame, one per
     segment start (tdk.SUFFIX_STARTS): a seeded [4, H, W] float32 plane over
-    [-0.1, 1.2), then the plain stages' outputs on it (Lab, the curved Lab,
-    linear RGB with values below 0 and above 1), each with ROTATE_NONFINITE
-    each of NaN, +Inf and -Inf planted."""
+    [-0.1, 1.2), then the plain stages' outputs on it in `numerics` (Lab,
+    the curved Lab, linear RGB with values below 0 and above 1), each with
+    ROTATE_NONFINITE each of NaN, +Inf and -Inf planted."""
     width, height = shape
     base = _rotate_source(device, (4, height, width), seed) * 1.3 - 0.1
     seg = [(s, p) for s, p in tdk.suffix_segment(device) if s is not None]
-    inter = ksuf.suffix_plain(base, [s for s, _ in seg], [p for _, p in seg])[0]
+    inter = ksuf.suffix_plain(base, [s for s, _ in seg], [p for _, p in seg],
+                              numerics=numerics)[0]
     ins = [base] + inter[:len(tdk.SUFFIX_STARTS) - 1]
     return [_plant_nonfinite(x.clone(), seed + 1 + k) for k, x in enumerate(ins)]
 
@@ -1778,17 +1838,44 @@ def _same_bits(got, want) -> tuple[bool, float]:
     return same, float(diff.max())
 
 
-def phase1e(device, shapes) -> float:
-    """The suffix kernel against its plain version, bit for bit: on each
-    frame of `shapes`, every segment start (rotatecrop/to_lab, basecurve,
-    from_lab, gamma) to the 8-bit and the 16-bit linear output, Normal,
-    Rotate90 and Transverse, every stage output kept and only the last;
-    and a monochrome frame from to_lab. Inputs carry NaN, +-Inf, negative
-    values and values above 1. Returns the largest |diff| (0 expected)."""
+def _lut_fallbacks(ins, device) -> tuple[int, int]:
+    """(to_lab's, gamma's) lookups of phase 1e's inputs `ins` that take
+    color.TransformLUT's out-of-range fallback: the three XYZ / W values of
+    each pixel of the to_lab input outside [0, 1] (NaN included), computed
+    as color.camera_to_lab_planar computes them, and the NaN of the gamma
+    input (clamped to [0, 1] first)."""
+    params = dict((s, p) for s, p in tdk.suffix_segment(device) if s is not None)["to_lab"]
+    mul, cm = (torch.as_tensor(np.asarray(v, np.float32), device=device) for v in params)
+    x = ins[0]
+    wb = [torch.clamp(x[c] * mul[c], max=1.0) for c in range(4)]
+    xyz = [((wb[0] * cm[r, 0] + wb[1] * cm[r, 1]) + wb[2] * cm[r, 2]) + wb[3] * cm[r, 3]
+           for r in range(3)]
+    looked = torch.stack([xyz[0] / tcc.XW, xyz[1], xyz[2] / tcc.ZW])
+    lab = int((~((looked >= 0) & (looked <= 1))).sum())
+    return lab, int(ins[tdk.SUFFIX_STARTS.index("gamma")].isnan().sum())
+
+
+def phase1e(device, shapes, numerics="direct") -> float:
+    """The suffix kernel in `numerics` ('direct' or 'lut') against its
+    plain version in the same numerics, bit for bit: on each frame of
+    `shapes`, every segment start (rotatecrop/to_lab, basecurve, from_lab,
+    gamma) to the 8-bit and the 16-bit linear output, Normal, Rotate90 and
+    Transverse, every stage output kept and only the last; and a
+    monochrome frame from to_lab. Inputs carry NaN, +-Inf, negative values
+    and values above 1 ('lut': how many of its lookups take the
+    out-of-range fallback is printed). Returns the largest |diff| (0
+    expected)."""
     worst = 0.0
+    lut = numerics == "lut"
+    launched = (lambda: ksuf.LUT_LAUNCHES) if lut else (lambda: ksuf.LAUNCHES)
     for shape in shapes:
-        ins = _suffix_inputs(device, shape, 31)
+        ins = _suffix_inputs(device, shape, 31, numerics)
         nan_in = [int(x.isnan().sum()) for x in ins]
+        if lut:
+            lab, gamma = _lut_fallbacks(ins, device)
+            print(f"  {shape[0]}x{shape[1]} 'lut': {lab} of the to_lab input's "
+                  f"{3 * shape[0] * shape[1]} XYZ lookups and {gamma} of the gamma input's take "
+                  f"the out-of-range fallback")
         cases = [(o, bits, False) for o in SUFFIX_ORIENTATIONS for bits in (8, 16)]
         cases += [("Normal", bits, True) for bits in (8, 16)]
         for orientation, bits, mono in cases:
@@ -1803,11 +1890,12 @@ def phase1e(device, shapes) -> float:
                 stages, params = [s for s, _ in real], [p for _, p in real]
                 for keep_all in (True, False):
                     keep = [keep_all or i == len(stages) - 1 for i in range(len(stages))]
-                    before = ksuf.LAUNCHES
-                    got = ksuf.run_suffix(ins[k], stages, params, bits, keep)
-                    if device.type == "cuda" and ksuf.LAUNCHES != before + 1:
-                        raise AssertionError("the suffix kernel did not launch once")
-                    want = ksuf.suffix_plain(ins[k], stages, params, bits, keep)
+                    before = launched()
+                    got = ksuf.run_suffix(ins[k], stages, params, bits, keep, numerics)
+                    if device.type == "cuda" and launched() != before + 1:
+                        raise AssertionError(f"the suffix kernel did not launch once in "
+                                             f"'{numerics}'")
+                    want = ksuf.suffix_plain(ins[k], stages, params, bits, keep, numerics)
                     _sync(device)
                     for name, g, w in zip(stages + ["quantize"], got[0] + [got[1]],
                                           want[0] + [want[1]]):
@@ -1819,19 +1907,104 @@ def phase1e(device, shapes) -> float:
                         worst = max(worst, maxd)
                         if not same:
                             raise AssertionError(
-                                f"suffix {shape} {orientation} {bits}-bit mono={mono} from "
-                                f"{start}, keep {keep}: {name} differs from the plain version "
-                                f"(max |diff| {maxd})")
+                                f"suffix '{numerics}' {shape} {orientation} {bits}-bit "
+                                f"mono={mono} from {start}, keep {keep}: {name} differs from "
+                                f"the plain version (max |diff| {maxd})")
                     del got, want
                 checked.append(start)
-            print(f"  {shape[0]}x{shape[1]} {orientation}{' monochrome' if mono else ''} "
-                  f"{bits}-bit{' linear' if bits == 16 else ''}: from {', '.join(checked)}, "
-                  f"every stage kept and the last only: bit-equal to the plain version "
-                  f"(inputs' NaN {nan_in})")
+            print(f"  {shape[0]}x{shape[1]} '{numerics}' {orientation}"
+                  f"{' monochrome' if mono else ''} {bits}-bit{' linear' if bits == 16 else ''}: "
+                  f"from {', '.join(checked)}, every stage kept and the last only: bit-equal "
+                  f"to the plain version (inputs' NaN {nan_in})")
         del ins
         if device.type == "cuda":
             torch.cuda.empty_cache()
     return worst
+
+
+# -- the develop kernels' stage_limit cuts (finish.cuh develop_rgb) ----------
+
+CUT_WIDTHS = (1024, 160)       # phase 1g: the scaled kernel's cut geometries (160: chunked on a TPU)
+
+
+def phase1g(device, bayer, xtrans, card) -> tuple[dict, dict, dict]:
+    """The develop kernels cut at stage_limit 1, 2 and 3 (the back end
+    stopped after the demosaic, Lab or the spline and quantized without
+    gamma: the JAX package's _finish_tile(stage_limit) profiling knob),
+    through their public wrappers with the counts set to 0 just before and
+    read just after: develop(plan, plane, stage_limit=k) on 24 MP Bayer
+    8-bit and 16-bit linear and 26 MP X-Trans 8-bit, develop_scaled(...,
+    stage_limit=k) on 24 MP Bayer to each width of CUT_WIDTHS; one launch of
+    the cut's own count each, nothing else; each held to its plain version
+    (contract). Then each cut timed at 24 MP Bayer 8-bit beside the whole
+    kernel (tdk.cut_times: full size and -> 1024), the plain versions one
+    call from idle, and the split printed: everything up to the demosaic
+    (cut 1), Lab (2 - 1), the spline (3 - 2), Lab^-1 + XYZ->RGB + gamma
+    (4 - 3). Returns ({row: launches}, {row: max |diff|}, {row: timing})
+    for the kernels line's rows develop_cut{k} and develop_scaled_cut{k}."""
+    cuts = tdk.CUTS[:-1]
+    b, x = traw.synthetic_bayer(*bayer, seed=21), traw.synthetic_xtrans(*xtrans, seed=21)
+    bname, xname = f"{bayer[0]}x{bayer[1]} Bayer", f"{xtrans[0]}x{xtrans[1]} X-Trans"
+    cases = [("develop", f"{bname} 8-bit", b, 8, 0),
+             ("develop", f"{bname} 16-bit linear", b, 16, 0),
+             ("develop", f"{xname} 8-bit", x, 8, 0)]
+    cases += [("develop_scaled", f"{bname} 8-bit -> {w}", b, 8, w) for w in CUT_WIDTHS]
+    runs = []
+    for kernel, label, raw, bits, maxwidth in cases:
+        plan = _plan(raw, bits, device, maxwidth=maxwidth)
+        plane = _upload(raw, device)
+        wrapper = kdev.develop if kernel == "develop" else kds.develop_scaled
+        plain = kdev.develop_plain if kernel == "develop" else kds.develop_scaled_plain
+        runs.append((kernel, label, plan, plane, wrapper, plain))
+    _sync(device)
+    _reset_counts()
+    outs = [[wrapper(plan, plane, stage_limit=k) for k in cuts]
+            for _, _, plan, plane, wrapper, _ in runs]
+    _sync(device)
+    counts = _counts()
+    want = {k: 0 for k in counts}
+    for kernel, *_ in runs:
+        for k in cuts:
+            want[f"{kernel}_cut{k}"] += 1
+    print(f"  {len(runs)} frames x cuts {cuts} through develop / develop_scaled: launches "
+          f"{({k: v for k, v in counts.items() if v})}")
+    if device.type == "cuda" and counts != want:
+        raise AssertionError(f"cuts: launches {counts}, want {want}")
+    launches = {k: v for k, v in counts.items() if "_cut" in k}
+    errors = dict.fromkeys(launches, 0)
+    for (kernel, label, plan, plane, _, plain), got in zip(runs, outs):
+        for k, g in zip(cuts, got):
+            errors[f"{kernel}_cut{k}"] = max(errors[f"{kernel}_cut{k}"], _check(
+                f"{kernel} {label} stage_limit {k} vs plain", g, plain(plan, plane, k)))
+    del outs
+    if device.type != "cuda":
+        print("  cut timings: not measured off the card")
+        return launches, errors, {}
+
+    timed = tdk.cut_times(device)
+    times = {}
+    for kernel, maxwidth, (_, _, plan, plane, _, plain) in (("develop", 0, runs[0]),
+                                                            ("develop_scaled", 1024, runs[3])):
+        ms = {}
+        for k in tdk.CUTS:
+            label = tdk.cut_label(kernel, k, maxwidth)
+            t = timed[label]
+            _show(label, t, card)
+            ms[k] = t["ms"]
+            if k == 4:
+                continue
+            pms = _plain_ms(lambda: plain(plan, plane, k), device)
+            print(f"    plain {pms:.4f} ms one call from idle")
+            times.update(_timing(f"{kernel}_cut{k}", t["ms"], pms, (t["bound_ms"],
+                                                                    t["bound_by"])))
+        print(f"  split of {kernel}'s {ms[4]:.4f} ms device (24 MP Bayer 8-bit"
+              f"{f' -> {maxwidth}' if maxwidth else ''}): up to the demosaic (cut 1) "
+              f"{ms[1]:.4f}, Lab {ms[2] - ms[1]:.4f}, spline {ms[3] - ms[2]:.4f}, "
+              f"Lab^-1 + XYZ->RGB + gamma {ms[4] - ms[3]:.4f} (on {card})")
+    del runs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, errors, times
 
 
 # -- the develop kernel's ablation ladder (csrc/develop_variants.cu) ---------
@@ -2069,6 +2242,17 @@ def phase3c(device, bayer, card) -> dict:
     print(f"  {main}: plain version {pms:.4f} ms one call from idle")
     times.update(_timing("suffix", st[main]["ms"], pms,
                          (st[main]["bound_ms"], st[main]["bound_by"])))
+    # The kernel's 'lut' form on the same segment (phase 2i's main path).
+    lt = tdk.suffix_times(device, "lut", ("to_lab",), (), SUFFIX_SHAPES[1:])
+    (lut_label, t), = lt.items()
+    _show(lut_label, t, card)
+    print(f"    eager stages it replaces in 'lut', same inputs: {t['eager_ms']:.4f} ms device "
+          f"(runs {t['eager_runs']}), {t['eager_ms'] / t['ms']:.2f}x the kernel; the 'direct' "
+          f"form {st[main]['ms']:.4f} ms in this call")
+    lpms = _plain_ms(lambda: ksuf.suffix_plain(x, [s for s, _ in seg], [p for _, p in seg], 8,
+                                               numerics="lut"), device)
+    print(f"  {lut_label}: plain version {lpms:.4f} ms one call from idle")
+    times.update(_timing("suffix_lut", t["ms"], lpms, (t["bound_ms"], t["bound_by"])))
     del x
     torch.cuda.empty_cache()
 
@@ -2135,7 +2319,25 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "scripts/exp_kernel_variants.py:37 (make_kernel, launched :203)"),
     ("develop_variants3", "imagepipe_tpu_torch/csrc/develop_variants.cu",
      "scripts/exp_kernel_variants3.py:37 (make_kernel, launched :207)"),
+    ("suffix_lut", "imagepipe_tpu_torch/csrc/suffix.cu",
+     "imagepipe_tpu/pipeline.py:329 (_dispatch_fused under color.numerics_mode('lut'), an "
+     "XLA jit; no Pallas)"),
+    *((f"develop_cut{k}", "imagepipe_tpu_torch/csrc/develop.cu",
+       f"imagepipe_tpu/kernels/develop_pallas.py:402 (_finish_tile, stage_limit={k}, via "
+       f"_develop_pallas_jit :531)") for k in (1, 2, 3)),
+    *((f"develop_scaled_cut{k}", "imagepipe_tpu_torch/csrc/develop_scaled.cu",
+       f"imagepipe_tpu/kernels/develop_scaled.py:391,500 (_scaled_kernel, "
+       f"_scaled_kernel_chunked, stage_limit={k})") for k in (1, 2, 3)),
 )
+
+
+def _phase(label, fn, *args):
+    """Run one phase: print its label, call fn(*args), print its wall."""
+    print(label)
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"  ({label.split(':')[0]}: {time.perf_counter() - t:.1f} s wall)")
+    return out
 
 
 def main() -> int:
@@ -2150,69 +2352,79 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    start = time.perf_counter()
 
     t = time.perf_counter()
     lib = kdev.build()
     print(f"phase 0: built {lib.name} from {sorted(p.name for p in kdev._CSRC.glob('*.cu'))} "
           f"in {time.perf_counter() - t:.1f} s")
 
-    print("phase 1: kernels vs plain versions, full size")
-    max_err, max_err_scaled = phase1(device, BAYER, XTRANS, BIG)
+    max_err, max_err_scaled = _phase("phase 1: kernels vs plain versions, full size",
+                                     phase1, device, BAYER, XTRANS, BIG)
     bayer_bases = [traw.synthetic_bayer(*BAYER, seed=10 + i) for i in range(4)]
     xtrans_bases = [traw.synthetic_xtrans(*XTRANS, seed=10 + i) for i in range(2)]
-    print("phase 1b: batched kernels vs single launches and plain versions")
     errors = dict(develop=max_err, develop_scaled=max_err_scaled,
-                  **phase1b(device, bayer_bases, xtrans_bases))
-    print("phase 1c: the rotate kernel vs its plain version")
-    errors["rotate"] = phase1c(device, BAYER)
-    errors["rotate_cfa"] = phase1c_cfa(device, BAYER)
-    print("phase 1d: the width-sharded develop's shard launches vs the unsharded kernel "
-          "and the plain version")
-    errors["develop_sp"] = phase1d(device, SP_CASES, bayer_bases)
-    print("phase 1e: the suffix kernel vs its plain version, bit for bit")
-    errors["suffix"] = phase1e(device, SUFFIX_SHAPES)
-    print("phase 1f: the develop kernel's ablation ladder")
-    ladder_launches, ladder_errors, ladder_times = phase1f(device, BAYER, card)
+                  **_phase("phase 1b: batched kernels vs single launches and plain versions",
+                           phase1b, device, bayer_bases, xtrans_bases))
+    errors["rotate"] = _phase("phase 1c: the rotate kernel vs its plain version",
+                              phase1c, device, BAYER)
+    errors["rotate_cfa"] = _phase("phase 1c (CFA): the rotate kernel's CFA route",
+                                  phase1c_cfa, device, BAYER)
+    errors["develop_sp"] = _phase(
+        "phase 1d: the width-sharded develop's shard launches vs the unsharded kernel and "
+        "the plain version", phase1d, device, SP_CASES, bayer_bases)
+    errors["suffix"] = _phase("phase 1e: the suffix kernel vs its plain version, bit for bit",
+                              phase1e, device, SUFFIX_SHAPES)
+    errors["suffix_lut"] = _phase(
+        "phase 1e (lut): the suffix kernel's 'lut' form vs its plain version, bit for bit",
+        phase1e, device, SUFFIX_SHAPES[1:], "lut")
+    cut_launches, cut_errors, cut_times = _phase(
+        "phase 1g: the develop kernels' stage_limit cuts", phase1g, device, BAYER, XTRANS, card)
+    errors.update(cut_errors)
+    ladder_launches, ladder_errors, ladder_times = _phase(
+        "phase 1f: the develop kernel's ablation ladder", phase1f, device, BAYER, card)
     errors.update(ladder_errors)
-    print("phase 2: main paths")
-    launches, scaled_launches = phase2(device, BAYER)
-    print("phase 2c: the staged edit path, RenderService")
-    rotate_launches, suffix_launches = phase2c(device, BAYER, card)
-    print("phase 2f: the CFA route's path, a staged scaled demosaic to a 1-px-wide stage")
-    cfa_launches, cfa_times = phase2f(device, card)
+    launches, scaled_launches = _phase("phase 2: main paths", phase2, device, BAYER)
+    rotate_launches, suffix_launches = _phase("phase 2c: the staged edit path, RenderService",
+                                              phase2c, device, BAYER, card)
+    cfa_launches, cfa_times = _phase(
+        "phase 2f: the CFA route's path, a staged scaled demosaic to a 1-px-wide stage",
+        phase2f, device, card)
     with tempfile.TemporaryDirectory() as td:
         paths, corrupt = _batch_files(td, bayer_bases, xtrans_bases)
-        print("phase 2b: the batch path, BatchEngine.develop_files")
-        batch_counts, flat, thumbs = phase2b(device, paths, corrupt)
-        print("phase 2d: the width-sharded batch path, BatchEngine(spatial=2).develop_files")
-        sp_launches = phase2d(device, paths, corrupt, flat)
-        print("phase 2d (eager): the width-sharded eager route, BatchEngine(spatial=2) vs "
-              "spatial=1")
-        phase2d_eager(device, paths, corrupt, flat, thumbs, td, BAYER, card)
-        print("phase 2g: the banded eager develop, develop_fused(bands=None) vs bands=1")
-        phase_bands(device, BIG, card)
-        print("phase 2h: a staged output with no pixels")
-        phase_empty(device, td)
-        print("phase 2i: the staged edit path in 'lut' numerics, and develop_batch_fn")
-        phase_lut(device, BAYER, bayer_bases, card)
-        print(f"phase 2e: the multi-process feed, {FLEET_RANKS} ranks of MultiHostBatchEngine "
-              f"on one card")
-        phase2e(device, paths, corrupt, flat, thumbs)
+        batch_counts, flat, thumbs = _phase("phase 2b: the batch path, BatchEngine.develop_files",
+                                            phase2b, device, paths, corrupt)
+        sp_launches = _phase(
+            "phase 2d: the width-sharded batch path, BatchEngine(spatial=2).develop_files",
+            phase2d, device, paths, corrupt, flat)
+        _phase("phase 2d (eager): the width-sharded eager route, BatchEngine(spatial=2) vs "
+               "spatial=1", phase2d_eager, device, paths, corrupt, flat, thumbs, td, BAYER, card)
+        _phase("phase 2g: the banded eager develop, develop_fused(bands=None) vs bands=1",
+               phase_bands, device, BIG, card)
+        _phase("phase 2h: a staged output with no pixels", phase_empty, device, td)
+        lut_launches = _phase(
+            "phase 2i: the staged edit path in 'lut' numerics, and develop_batch_fn",
+            phase_lut, device, BAYER, bayer_bases, card)
+        _phase(f"phase 2e: the multi-process feed, {FLEET_RANKS} ranks of MultiHostBatchEngine "
+               f"on one card", phase2e, device, paths, corrupt, flat, thumbs)
         del flat, thumbs
         counts = dict(develop=launches, develop_scaled=scaled_launches, rotate=rotate_launches,
                       develop_sp=sp_launches, suffix=suffix_launches, rotate_cfa=cfa_launches,
-                      **ladder_launches, **batch_counts)
-        print("phase 3: timing")
-        times = phase3(device, BAYER, card)
-        times.update(phase3c(device, BAYER, card), **cfa_times, **ladder_times)
-        print("phase 3b: timing the batch path")
+                      suffix_lut=lut_launches, **cut_launches, **ladder_launches,
+                      **batch_counts)
+        times = _phase("phase 3: timing", phase3, device, BAYER, card)
+        times.update(_phase("phase 3c: timing the rotate and suffix kernels and the edits",
+                            phase3c, device, BAYER, card),
+                     **cfa_times, **ladder_times, **cut_times)
         bayer_paths = [p for p in paths[:17] if p != paths[corrupt]]
-        batch_times, single_mps = phase3b(device, bayer_paths, bayer_bases, card)
+        batch_times, single_mps = _phase("phase 3b: timing the batch path", phase3b, device,
+                                         bayer_paths, bayer_bases, card)
         times.update(batch_times)
-        print("phase 3e: timing the multi-process feed")
-        phase3e(device, bayer_paths, single_mps, card)
-        print("phase 3d: timing the width-sharded develop")
-        times.update(phase3d(device, card))
+        _phase("phase 3e: timing the multi-process feed", phase3e, device, bayer_paths,
+               single_mps, card)
+        times.update(_phase("phase 3d: timing the width-sharded develop", phase3d, device,
+                            card))
+    print(f"all phases: {time.perf_counter() - start:.1f} s wall")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

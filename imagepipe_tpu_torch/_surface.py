@@ -27,11 +27,6 @@ _INTERPRET = ("Pallas interpret mode on the CPU; the port's wrappers run their p
               "version on CPU tensors instead")
 _STAGED = ("a plane padded on the host for the TPU's 8x128 tiles; the port's kernel "
            "reads the uncropped plane")
-_STAGE_LIMIT = ("the attribution knob of scripts/exp_r5_floor.py (part C: the develop "
-                "chain cut after the demosaic, Lab, or the spline); the port attributes "
-                "with the ablation ladder, csrc/develop_variants.cu (kernels/variants.py), "
-                "which covers the cut after the demosaic and the whole chain (ROADMAP: "
-                "the cuts after Lab and after the spline are not covered)")
 
 NOT_PORTED: dict[str, str] = {
     # Modules: the port's kernels live under other names.
@@ -70,7 +65,6 @@ NOT_PORTED: dict[str, str] = {
     "parallel.multihost.MultiHostBatchEngine(mesh=)": _MESH,
     "kernels.develop_scaled.develop_scaled(interpret=)": _INTERPRET,
     "kernels.develop_scaled.develop_scaled(staged=)": _STAGED,
-    "kernels.develop_scaled.develop_scaled(stage_limit=)": _STAGE_LIMIT,
     "kernels.develop_scaled.develop_scaled_batch(interpret=)": _INTERPRET,
     "kernels.develop_scaled.develop_scaled_batch(staged=)": _STAGED,
     "kernels.develop_scaled.develop_scaled_batch(plan=)": (

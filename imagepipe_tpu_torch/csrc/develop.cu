@@ -59,6 +59,11 @@
 //
 // Numerics: the back end is csrc/finish.cuh, shared with the scaled
 // kernel (develop_scaled.cu). nvcc contracts a + b*c into FMA, as XLA does.
+//
+// A whole-image launch may cut the back end after the demosaic, Lab or the
+// spline (stage_limit 1..3, finish::develop_rgb's kStageLimit), the
+// counterpart of _develop_pallas_jit(stage_limit=): a profiling knob that
+// splits the kernel's time by differencing the cuts. Production is 4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,8 +141,8 @@ struct Packed<uint16_t> {
 // kShard = false is the whole image: x_off = 0 and out_width = width are
 // compile-time facts there. Read at run time they cost the whole-image
 // launch ~1.7% on an H100 (the same arithmetic, scheduled worse), so the
-// shard form is compiled apart.
-template <typename T, typename O, bool kShard>
+// shard form is compiled apart. kStageLimit: finish::develop_rgb's cut.
+template <typename T, typename O, bool kShard, int kStageLimit = 4>
 __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) {
   const int x_off = kShard ? a.x_off : 0;
   const int out_width = kShard ? a.out_width : a.width;
@@ -259,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) 
       }
     }
     float rgb[3];
-    finish::develop_rgb(rgbe, s_cal, a.calib, rgb);
+    finish::develop_rgb<kStageLimit>(rgbe, s_cal, a.calib, rgb);
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
       q[r] |= static_cast<typename P::T>(finish::quantize(static_cast<O*>(nullptr), rgb[r]))
@@ -288,25 +293,38 @@ __global__ void __launch_bounds__(kThreads) develop_kernel(const DevelopArgs a) 
   }
 }
 
-template <typename T, typename O, bool kShard>
+template <typename T, typename O, bool kShard, int kStageLimit = 4>
 cudaError_t launch_as(const DevelopArgs& a, int batch, cudaStream_t stream) {
   const int smem = smem_bytes(a.ph * a.pw, a.calib.spline_stride);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        develop_kernel<T, O, kShard>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(develop_kernel<T, O, kShard, kStageLimit>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 block(kThreadsX, kThreadsY);
   const dim3 grid((a.out_width + kTileW - 1) / kTileW, (a.height + kTileH - 1) / kTileH, batch);
-  develop_kernel<T, O, kShard><<<grid, block, smem, stream>>>(a);
+  develop_kernel<T, O, kShard, kStageLimit><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// A cut (stage_limit 1..3) is a whole-image launch only.
 template <typename T, typename O>
-cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
-  return a.x_off == 0 && a.out_width == a.width ? launch_as<T, O, false>(a, batch, stream)
-                                                : launch_as<T, O, true>(a, batch, stream);
+cudaError_t launch(const DevelopArgs& a, int batch, int stage_limit, cudaStream_t stream) {
+  const bool whole = a.x_off == 0 && a.out_width == a.width;
+  switch (stage_limit) {
+    case 4:
+      return whole ? launch_as<T, O, false>(a, batch, stream)
+                   : launch_as<T, O, true>(a, batch, stream);
+    case 3:
+      return whole ? launch_as<T, O, false, 3>(a, batch, stream) : cudaErrorInvalidValue;
+    case 2:
+      return whole ? launch_as<T, O, false, 2>(a, batch, stream) : cudaErrorInvalidValue;
+    case 1:
+      return whole ? launch_as<T, O, false, 1>(a, batch, stream) : cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -322,8 +340,9 @@ cudaError_t launch(const DevelopArgs& a, int batch, cudaStream_t stream) {
 // in_x0 = 1 - x_off, crop_y = 0; validity and CFA phase stay those of the
 // whole crop. phases: the [ph * pw] 16-byte per-phase tables of the cropped
 // CFA (kernels/develop.py::demosaic_phases). in_f32: 0 = u16 planes, 1 = f32
-// planes. out_bits: 8 or 16. Returns the cudaError_t of the launch (0 =
-// success).
+// planes. out_bits: 8 or 16. stage_limit: 4, or a cut 1..3 of a
+// whole-image launch (finish::develop_rgb). Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
                                     long long plane_stride, long long row_stride,
                                     int in_x0, int crop_y, int height, int width,
@@ -331,7 +350,8 @@ extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
                                     const float* scal, const float* spline,
                                     int spline_stride, int n_knots,
                                     const void* phases, int ph, int pw, int mono,
-                                    int linear, int out_bits, void* out, void* stream) {
+                                    int linear, int out_bits, int stage_limit, void* out,
+                                    void* stream) {
   DevelopArgs a;
   a.plane = plane;
   a.row_stride = row_stride;
@@ -357,10 +377,11 @@ extern "C" int develop_batch_launch(const void* plane, int in_f32, int batch,
       || x_off < 0 || out_width <= 0 || x_off + out_width > width || crop_y < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int k = stage_limit;
   if (in_f32) {
-    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, batch, s)
-                                          : launch<float, uint16_t>(a, batch, s));
+    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, batch, k, s)
+                                          : launch<float, uint16_t>(a, batch, k, s));
   }
-  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, batch, s)
-                                        : launch<uint16_t, uint16_t>(a, batch, s));
+  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, batch, k, s)
+                                        : launch<uint16_t, uint16_t>(a, batch, k, s));
 }

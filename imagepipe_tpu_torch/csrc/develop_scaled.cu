@@ -16,7 +16,9 @@
 //   v = min((raw - black) / range, 1)   (levels, gofloat.rs:122-130)
 //   w = max(0, (1 - dx^2) - dy^2)       (paraboloid, scaling.rs:104-107)
 //
-// then the shared back end (finish.cuh, the counterpart of _finish_tile).
+// then the shared back end (finish.cuh, the counterpart of _finish_tile),
+// whole or cut after the demosaic, Lab or the spline (stage_limit 1..3, as
+// _scaled_kernel(stage_limit=); a profiling knob, production is 4).
 //
 // Not carried over from the Pallas kernels: the bf16 hi/lo one-hot matmul
 // selection (a TPU gather workaround), the DMA windows and the ~H*W*5-byte
@@ -113,19 +115,20 @@ __host__ __device__ constexpr Layout layout(const ScaledArgs& a) {
   return l;
 }
 
-template <typename O>
+template <int kStageLimit, typename O>
 __device__ __forceinline__ void finish_store(const float rgbe[4], const float* cal,
                                              const finish::Calib& k, O* out, long long plane_px,
                                              long long at) {
   float rgb[3];
-  finish::develop_rgb(rgbe, cal, k, rgb);
+  finish::develop_rgb<kStageLimit>(rgbe, cal, k, rgb);
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     out[r * plane_px + at] = static_cast<O>(finish::quantize(static_cast<O*>(nullptr), rgb[r]));
   }
 }
 
-template <typename T, typename O>
+// kStageLimit: finish::develop_rgb's cut (4: the whole chain).
+template <typename T, typename O, int kStageLimit = 4>
 __global__ void __launch_bounds__(kThreads) scaled_kernel(const ScaledArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(a);
@@ -200,7 +203,8 @@ __global__ void __launch_bounds__(kThreads) scaled_kernel(const ScaledArgs a) {
     if (!active) return;
 #pragma unroll
     for (int k = 0; k < 4; ++k) rgbe[k] = counts[k] > 0.0f ? sums[k] / counts[k] : 0.0f;
-    finish_store(rgbe, s_cal, a.calib, out, plane_px, static_cast<long long>(row) * a.nw + col);
+    finish_store<kStageLimit>(rgbe, s_cal, a.calib, out, plane_px,
+                              static_cast<long long>(row) * a.nw + col);
     return;
   }
 
@@ -223,22 +227,34 @@ __global__ void __launch_bounds__(kThreads) scaled_kernel(const ScaledArgs a) {
     if (ocol >= a.nw || orow2 >= a.nh) continue;
 #pragma unroll
     for (int k = 0; k < 4; ++k) rgbe[k] = s_rgbe[4 * o + k];
-    finish_store(rgbe, s_cal, a.calib, out, plane_px, static_cast<long long>(orow2) * a.nw + ocol);
+    finish_store<kStageLimit>(rgbe, s_cal, a.calib, out, plane_px,
+                              static_cast<long long>(orow2) * a.nw + ocol);
   }
 }
 
-template <typename T, typename O>
-cudaError_t launch(const ScaledArgs& a, int batch, cudaStream_t stream) {
+template <typename T, typename O, int kStageLimit>
+cudaError_t launch_as(const ScaledArgs& a, int batch, cudaStream_t stream) {
   const int smem = layout(a).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        scaled_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        scaled_kernel<T, O, kStageLimit>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((a.nw + a.tc - 1) / a.tc, (a.nh + a.tr - 1) / a.tr, batch);
-  scaled_kernel<T, O><<<grid, kThreads, smem, stream>>>(a);
+  scaled_kernel<T, O, kStageLimit><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, typename O>
+cudaError_t launch(const ScaledArgs& a, int batch, int stage_limit, cudaStream_t stream) {
+  switch (stage_limit) {
+    case 4: return launch_as<T, O, 4>(a, batch, stream);
+    case 3: return launch_as<T, O, 3>(a, batch, stream);
+    case 2: return launch_as<T, O, 2>(a, batch, stream);
+    case 1: return launch_as<T, O, 1>(a, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 bool is_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
@@ -251,15 +267,17 @@ bool is_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 // spline_stride] into out [batch, 3, nh, nw]. The launch plan (sx, tc, tr)
 // is kernels/develop_scaled.py::scaled_plan's: sx lanes of one warp per
 // output pixel, tc * tr * sx == 256. in_f32: 0 = u16 planes, 1 =
-// f32 planes. out_bits: 8 or 16. Returns the cudaError_t of the launch
-// (0 = success).
+// f32 planes. out_bits: 8 or 16. stage_limit: 4, or a cut 1..3
+// (finish::develop_rgb). Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int develop_scaled_batch_launch(
     const void* plane, int in_f32, int batch, long long plane_stride,
     long long row_stride, int crop_x, int crop_y, int nh, int nw,
     const int* from_x, const int* to_x, const int* from_y, const int* to_y,
     const float* dx2, const float* dy2, int kx, const float* scal, const float* spline,
     int spline_stride, int n_knots, const uint8_t* pattern, int ph, int pw,
-    int sx, int tc, int tr, int linear, int out_bits, void* out, void* stream) {
+    int sx, int tc, int tr, int linear, int out_bits, int stage_limit, void* out,
+    void* stream) {
   ScaledArgs a;
   a.plane = plane;
   a.row_stride = row_stride;
@@ -292,10 +310,11 @@ extern "C" int develop_scaled_batch_launch(
       || !is_pow2(sx) || sx > 32 || tc <= 0 || tr <= 0 || tc * tr * sx != kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int k = stage_limit;
   if (in_f32) {
-    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, batch, s)
-                                          : launch<float, uint16_t>(a, batch, s));
+    return static_cast<int>(out_bits == 8 ? launch<float, uint8_t>(a, batch, k, s)
+                                          : launch<float, uint16_t>(a, batch, k, s));
   }
-  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, batch, s)
-                                        : launch<uint16_t, uint16_t>(a, batch, s));
+  return static_cast<int>(out_bits == 8 ? launch<uint16_t, uint8_t>(a, batch, k, s)
+                                        : launch<uint16_t, uint16_t>(a, batch, k, s));
 }

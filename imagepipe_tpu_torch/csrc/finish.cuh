@@ -151,9 +151,21 @@ __device__ __forceinline__ void load_calib(float* dst, const Calib& k, int b, in
 }
 
 // Develop one pixel's RGBE to its three output channels before quantizing,
-// with the calibration `cal` staged by load_calib.
+// with the calibration `cal` staged by load_calib. kStageLimit < 4 cuts the
+// chain as _finish_tile(stage_limit) does, a profiling knob: 1 returns the
+// RGBE's first three channels, 2 (L, A, B) after Lab, 3 (L, A, B) after
+// the spline; each is quantized as it stands, with no gamma (_emit with
+// linear=True), whatever Calib::linear says. 4, the production chain,
+// compiles to the same code as before the knob existed.
+template <int kStageLimit = 4>
 __device__ __forceinline__ void develop_rgb(const float rgbe[4], const float* cal,
                                             const Calib& k, float out[3]) {
+  static_assert(kStageLimit >= 1 && kStageLimit <= 4, "stage limit 1..4");
+  if constexpr (kStageLimit == 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[c] = rgbe[c];
+    return;
+  }
   const float* scal = cal;
 
   // WB multipliers (clipped to 1) and the 3x4 camera matrix -> XYZ.
@@ -178,6 +190,10 @@ __device__ __forceinline__ void develop_rgb(const float rgbe[4], const float* ca
   float L = div_const<kDiv100>(116.0f * fy - 16.0f);
   const float A = div_const<kDiv255>(500.0f * (fx - fy) + 127.0f);
   const float B = div_const<kDiv255>(200.0f * (fy - fz) + 127.0f);
+  if constexpr (kStageLimit == 2) {
+    out[0] = L; out[1] = A; out[2] = B;
+    return;
+  }
 
   // Tone spline on L: interval by compare count, end clamps.
   const int nk = k.n_knots;
@@ -196,6 +212,10 @@ __device__ __forceinline__ void develop_rgb(const float rgbe[4], const float* ca
     if (L >= xs[nk - 1]) Lc = ys[nk - 1];
     if (L <= xs[0]) Lc = ys[0];
     L = Lc;
+  }
+  if constexpr (kStageLimit == 3) {
+    out[0] = L; out[1] = A; out[2] = B;
+    return;
   }
 
   // Lab -> XYZ -> linear RGB (color_conversions.rs:58-65,171-191).

@@ -13,7 +13,10 @@
 // views, as kernels.develop.apply_flips does in the per-stage loop.
 //
 // Numerics: bit-equal to the per-stage loop, which runs each stage as
-// eager torch ops in 'direct' numerics (color.py, spline.py). Eager torch
+// eager torch ops (color.py, spline.py) in the numerics the ops resolve,
+// 'direct' or 'lut' (a launch argument; the kernel is a template over it,
+// so the 'direct' form's code is the same with or without the other).
+// Eager torch
 // rounds every product and every sum on its own, so each one here is an
 // explicit __fmul_rn / __fadd_rn / __fsub_rn, which nvcc never contracts
 // into an FMA, in the plain version's order. Divisions by constants go
@@ -25,6 +28,13 @@
 // to u8 cast goes through int64 as torch's does. Python constants are
 // rounded to float as torch rounds a Python scalar (static_cast<float> of
 // the double). Build without --use_fast_math.
+//
+// 'lut' replaces to_lab's three cube roots and gamma's power by
+// color.TransformLUT: inside [0, 1] a linear interpolation of an 8193-entry
+// float32 table (the caller's device copy, TransformLUT._table), outside
+// it the reference form: the cube root as pow in float64 rounded once to
+// float (color._xyz_lab_f_ref; torch's pow on a float64 tensor calls the
+// same double pow), the power as powf (color._srgb_apply_ref).
 //
 // What bounds it: bytes. At 24 MP a segment from to_lab reads 4 f32 planes
 // and writes up to four 3-plane f32 stage outputs and the 3-plane u8
@@ -57,6 +67,10 @@ constexpr float kGammaLo = static_cast<float>(0.0031308);
 constexpr float kGammaSlope = static_cast<float>(12.92);
 constexpr float kGammaMul = static_cast<float>(1.055);
 constexpr float kGammaSub = static_cast<float>(0.055);
+// color._srgb_apply_ref's exponent, float(f32(1) / f32(2.4)): a float
+// quotient, not finish::kInvGamma's rounded double one.
+constexpr float kInvGammaRef = 1.0f / 2.4f;
+constexpr int kLutMax = 8191;               // color._LUT_MAX
 
 struct Segment {
   const float* in;          // [in_planes, height, width], row and plane strides below
@@ -69,6 +83,8 @@ struct Segment {
   float* out[kStages];      // each stage's [3, H', W'] output, or null when not kept
   void* quant;              // [3, H', W'] u8 or u16, or null
   int quant_bits;
+  const float* lab_table;   // 'lut': XYZ_LAB_TRANSFORM's and SRGB_GAMMA_TRANSFORM's
+  const float* gamma_table; // [kLutMax + 2] tables; null in 'direct'
 };
 
 // torch.clamp on CUDA: NaN passes through, else fmaxf / fminf.
@@ -89,6 +105,37 @@ __device__ __forceinline__ float lab_f(float v) {
   return div_const<finish::kDiv116>(__fadd_rn(__fmul_rn(v, finish::kLabK), 16.0f));
 }
 
+// color.TransformLUT.__call__ in 'lut' at `val`, the table being the
+// transform's: pos = val * 8191, base = trunc(pos), key = base clamped to
+// [0, 8191] with NaN as 0, then table[key] + a * (table[key + 1] -
+// table[key]) with a = pos - base. Only for val in [0, 1], where the
+// plain version selects it.
+__device__ __forceinline__ float lut_lerp(float val, const float* table) {
+  const float pos = __fmul_rn(val, static_cast<float>(kLutMax));
+  const float base = truncf(pos);
+  const float k = clamp(base, 0.0f, static_cast<float>(kLutMax));
+  const int key = isnan(k) ? 0 : static_cast<int>(k);
+  const float a = __fsub_rn(pos, base);
+  const float v1 = __ldg(table + key), v2 = __ldg(table + key + 1);
+  return __fadd_rn(v1, __fmul_rn(a, __fsub_rn(v2, v1)));
+}
+
+__device__ __forceinline__ bool lut_in_range(float val) { return val >= 0.0f && val <= 1.0f; }
+
+// color._xyz_lab_f_ref: above LAB_E the cube root in float64 rounded once,
+// else the linear branch, as lab_f's.
+__device__ __forceinline__ float lab_f_ref(float v) {
+  if (v > finish::kLabE) return static_cast<float>(pow(static_cast<double>(v), 1.0 / 3.0));
+  return div_const<finish::kDiv116>(__fadd_rn(__fmul_rn(v, finish::kLabK), 16.0f));
+}
+
+// XYZ_LAB_TRANSFORM in the kernel's numerics.
+template <bool kLut>
+__device__ __forceinline__ float lab_f_as(float v, const float* table) {
+  if constexpr (kLut) return lut_in_range(v) ? lut_lerp(v, table) : lab_f_ref(v);
+  return lab_f(v);
+}
+
 // lab_to_xyz's x and z: f^3 above LAB_E, else (f * 116 - 16) / K.
 __device__ __forceinline__ float lab_inv(float f) {
   const float f3 = __fmul_rn(__fmul_rn(f, f), f);
@@ -103,8 +150,9 @@ __device__ __forceinline__ float row3(float a, float b, float c, const float* m)
                    __fmul_rn(c, __ldg(m + 2)));
 }
 
-// color.camera_to_lab_planar in 'direct' numerics: (r, g, b, e) -> (L, a, b).
-__device__ __forceinline__ void to_lab(float v[4], const float* p) {
+// color.camera_to_lab_planar: (r, g, b, e) -> (L, a, b).
+template <bool kLut>
+__device__ __forceinline__ void to_lab(float v[4], const float* p, const float* table) {
   float wb[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) wb[c] = clamp_max(__fmul_rn(v[c], __ldg(p + kMul + c)), 1.0f);
@@ -114,9 +162,9 @@ __device__ __forceinline__ void to_lab(float v[4], const float* p) {
     const float* m = p + kCam + 4 * r;
     xyz[r] = __fadd_rn(row3(wb[0], wb[1], wb[2], m), __fmul_rn(wb[3], __ldg(m + 3)));
   }
-  const float fx = lab_f(div_const<finish::kDivXW>(xyz[0]));
-  const float fy = lab_f(xyz[1]);                      // / YW = 1: exact
-  const float fz = lab_f(div_const<finish::kDivZW>(xyz[2]));
+  const float fx = lab_f_as<kLut>(div_const<finish::kDivXW>(xyz[0]), table);
+  const float fy = lab_f_as<kLut>(xyz[1], table);      // / YW = 1: exact
+  const float fz = lab_f_as<kLut>(div_const<finish::kDivZW>(xyz[2]), table);
   v[0] = div_const<finish::kDiv100>(__fsub_rn(__fmul_rn(fy, 116.0f), 16.0f));
   v[1] = div_const<finish::kDiv255>(__fadd_rn(__fmul_rn(__fsub_rn(fx, fy), 500.0f), 127.0f));
   v[2] = div_const<finish::kDiv255>(__fadd_rn(__fmul_rn(__fsub_rn(fy, fz), 200.0f), 127.0f));
@@ -158,9 +206,17 @@ __device__ __forceinline__ void from_lab(float v[4], const float* p) {
   for (int r = 0; r < 3; ++r) v[r] = row3(x, y, z, p + kRgb + 3 * r);
 }
 
-// OpGamma: clamp to [0, 1], then color._srgb_apply.
-__device__ __forceinline__ float srgb_gamma(float v) {
+// OpGamma: clamp to [0, 1], then color._srgb_apply ('direct'), or
+// SRGB_GAMMA_TRANSFORM's lookup with color._srgb_apply_ref outside [0, 1]
+// (NaN only, after the clamp) ('lut').
+template <bool kLut>
+__device__ __forceinline__ float srgb_gamma(float v, const float* table) {
   v = clamp(v, 0.0f, 1.0f);
+  if constexpr (kLut) {
+    if (lut_in_range(v)) return lut_lerp(v, table);
+    if (v < kGammaLo) return __fmul_rn(v, kGammaSlope);
+    return __fsub_rn(__fmul_rn(powf(clamp_min(v, 0.0f), kInvGammaRef), kGammaMul), kGammaSub);
+  }
   if (v < kGammaLo) return __fmul_rn(v, kGammaSlope);
   const float e = expf(__fmul_rn(logf(clamp_min(v, kTiny)), finish::kInvGamma));
   return __fsub_rn(__fmul_rn(e, kGammaMul), kGammaSub);
@@ -185,7 +241,8 @@ __device__ __forceinline__ void store(float* out, const float v[4], long long q,
 }
 
 // One thread per pixel, the frame's pixels in row-major order (fewer than
-// 2^31 of them).
+// 2^31 of them); kLut: 'lut' numerics.
+template <bool kLut>
 __global__ void __launch_bounds__(256) suffix_kernel(const Segment s) {
   const unsigned p = blockIdx.x * blockDim.x + threadIdx.x;
   const long long hw = static_cast<long long>(s.height) * s.width;
@@ -201,7 +258,7 @@ __global__ void __launch_bounds__(256) suffix_kernel(const Segment s) {
   for (int c = 0; c < 4; ++c) v[c] = c < planes ? src[c * s.in_plane] : 0.0f;
 
   if (s.stages & kToLab) {
-    to_lab(v, s.params);
+    to_lab<kLut>(v, s.params, s.lab_table);
     store(s.out[0], v, q, hw);
   }
   if (s.stages & kCurve) {
@@ -214,7 +271,7 @@ __global__ void __launch_bounds__(256) suffix_kernel(const Segment s) {
   }
   if (s.stages & kGamma) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) v[c] = srgb_gamma(v[c]);
+    for (int c = 0; c < 3; ++c) v[c] = srgb_gamma<kLut>(v[c], s.gamma_table);
     store(s.out[3], v, q, hw);
   }
   if (s.stages & kTransform) {
@@ -243,19 +300,31 @@ __global__ void __launch_bounds__(256) suffix_kernel(const Segment s) {
 // float32 with plane stride in_plane and row stride in_row (elements;
 // planes 4 when the segment starts at to_lab, else 3); `out_*` a stage's
 // contiguous [3, height, width] output or null; `quant` null or
-// [3, height, width] of quant_bits (8 or 16). Returns the launch's
-// cudaError_t.
+// [3, height, width] of quant_bits (8 or 16). lut: 0 = 'direct' numerics,
+// 1 = 'lut' with the device tables lab_table and gamma_table ([8193]
+// float32 each; the ones the segment's stages read must not be null).
+// Returns the launch's cudaError_t.
 extern "C" int suffix_launch(const float* in, long long in_plane, long long in_row,
                              int height, int width, int stages, const float* params,
                              int n_knots, int flip_x, int flip_y, float* out_to_lab,
                              float* out_curve, float* out_from_lab, float* out_gamma,
-                             float* out_transform, void* quant, int quant_bits,
+                             float* out_transform, void* quant, int quant_bits, int lut,
+                             const float* lab_table, const float* gamma_table,
                              cudaStream_t stream) {
   Segment s{in, in_plane, in_row, height, width, stages, params, n_knots, flip_x, flip_y,
             {out_to_lab, out_curve, out_from_lab, out_gamma, out_transform}, quant,
-            quant_bits};
+            quant_bits, lab_table, gamma_table};
   const long long hw = static_cast<long long>(height) * width;
   if (hw <= 0) return static_cast<int>(cudaSuccess);
-  suffix_kernel<<<static_cast<unsigned>((hw + 255) / 256), 256, 0, stream>>>(s);
+  if (lut && (((stages & kToLab) && lab_table == nullptr)
+              || ((stages & kGamma) && gamma_table == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks = static_cast<unsigned>((hw + 255) / 256);
+  if (lut) {
+    suffix_kernel<true><<<blocks, 256, 0, stream>>>(s);
+  } else {
+    suffix_kernel<false><<<blocks, 256, 0, stream>>>(s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

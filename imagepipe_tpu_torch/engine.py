@@ -45,10 +45,16 @@ __all__ = ["DevelopPlan", "make_develop_plan", "plan_from_jax",
            "develop_fused", "auto_bands", "develop_batch_perimage",
            "develop_batch_fn", "stack_params", "normalize_plane",
            "develop_batch_perimage_sp", "stage_perimage_sp", "sp_spans",
-           "finish_planes", "normalize_plane_np", "planar_to_hwc"]
+           "finish_planes", "normalize_plane_np", "planar_to_hwc", "check_stage_limit",
+           "STAGE_LIMITS"]
 
 _PARAM_KEYS = ("mins", "ranges", "mul", "cmatrix", "rgbmatrix")
 _SPLINE_KEYS = ("spline_xs", "spline_ys", "spline_c1", "spline_c2", "spline_c3")
+
+# Where the develop back end may stop (`finish_planes`): after the
+# demosaic (1), after WB + matrix + Lab (2), after the spline (3), or the
+# whole chain (4), as the JAX package's develop kernels' stage_limit.
+STAGE_LIMITS = (1, 2, 3, 4)
 
 
 class DevelopPlan:
@@ -211,11 +217,13 @@ def plan_from_jax(jax_plan, device) -> DevelopPlan:
         dem_path=jax_plan.dem_path, dem_w=jax_plan.dem_w, dem_h=jax_plan.dem_h)
 
 
-def _develop_one(plan: DevelopPlan, plane: torch.Tensor, numerics: str):
+def _develop_one(plan: DevelopPlan, plane: torch.Tensor, numerics: str,
+                 stage_limit: int = 4):
     """plane: the full sensor [H0,W0] (cfa/mono) or [H0,W0,3] (rgb), u16 or
     f32 counts -> quantized planar [3, H', W']. Crop, levels (cfa/mono use
     channel 0's levels, gofloat.rs:101-127), demosaic and the plan's resize
-    (engine.py:212-226 of the JAX package), then finish_planes."""
+    (engine.py:212-226 of the JAX package), then finish_planes, cut at
+    `stage_limit`."""
     p = plan.params
     h, w = plan.height, plan.width
     plane = plane[plan.crop_y:plan.crop_y + h, plan.crop_x:plan.crop_x + w].float()
@@ -241,23 +249,40 @@ def _develop_one(plan: DevelopPlan, plane: torch.Tensor, numerics: str):
     return finish_planes(rgbe, p, out_bits=plan.out_bits, linear=plan.linear,
                          apply_curve=plan.apply_curve, n_knots=plan.n_knots,
                          orientation_flips=plan.orientation_flips,
-                         numerics=numerics)
+                         numerics=numerics, stage_limit=stage_limit)
+
+
+def check_stage_limit(stage_limit) -> int:
+    """`stage_limit` as an int of STAGE_LIMITS; raises ValueError on any
+    other value."""
+    if isinstance(stage_limit, bool) or stage_limit not in STAGE_LIMITS:
+        raise ValueError(f"stage_limit {stage_limit!r}, want one of {STAGE_LIMITS}")
+    return int(stage_limit)
 
 
 def finish_planes(rgbe, params, *, out_bits, linear, apply_curve, n_knots,
-                  orientation_flips, numerics):
+                  orientation_flips, numerics, stage_limit=4):
     """The develop back end on RGBE planes: WB/matrix/Lab/spline/Lab^-1/
-    gamma/orientation/quantize -> quantized planar [3, H', W']."""
-    L, A, B = cc.camera_to_lab_planar(params["mul"], params["cmatrix"], rgbe,
-                                      numerics)
-    if apply_curve:
-        L = eval_spline_arrays(
-            params["spline_xs"], params["spline_ys"], params["spline_c1"],
-            params["spline_c2"], params["spline_c3"], n_knots, L)
-    rgb = list(cc.lab_to_rgb_planar(params["rgbmatrix"], (L, A, B)))
-    # Gamma is skipped for 16-bit linear output (gamma.rs:17-18).
-    if not linear:
-        rgb = [cc.apply_srgb_gamma(torch.clamp(ch, 0.0, 1.0), numerics) for ch in rgb]
+    gamma/orientation/quantize -> quantized planar [3, H', W'].
+    stage_limit < 4 (a profiling knob, `_finish_tile(stage_limit)` of the
+    JAX package's develop kernels) quantizes, without gamma, what the chain
+    has after the demosaic (1: RGBE's first three planes), after Lab (2:
+    L, A, B) or after the spline (3)."""
+    stage_limit = check_stage_limit(stage_limit)
+    rgb = list(rgbe[:3])
+    if stage_limit >= 2:
+        L, A, B = cc.camera_to_lab_planar(params["mul"], params["cmatrix"], rgbe,
+                                          numerics)
+        if apply_curve and stage_limit >= 3:
+            L = eval_spline_arrays(
+                params["spline_xs"], params["spline_ys"], params["spline_c1"],
+                params["spline_c2"], params["spline_c3"], n_knots, L)
+        rgb = [L, A, B]
+    if stage_limit == 4:
+        rgb = list(cc.lab_to_rgb_planar(params["rgbmatrix"], rgb))
+        # Gamma is skipped for 16-bit linear output (gamma.rs:17-18).
+        if not linear:
+            rgb = [cc.apply_srgb_gamma(torch.clamp(ch, 0.0, 1.0), numerics) for ch in rgb]
 
     transpose, flip_x, flip_y = orientation_flips
     for i in range(3):

@@ -28,6 +28,10 @@ exchange between the shards: the counterpart of `develop_pallas_sp` and of
 * `LAUNCHES` counts the launches of `develop`, `BATCH_LAUNCHES` those of
   `develop_batch` and `SP_LAUNCHES` the shard launches of `develop_sp(_batch)`,
   so a run can show its main path went through the kernel.
+  `develop(plan, plane, stage_limit)` with a cut 1..3 (the profiling knob
+  of `_develop_pallas_jit(stage_limit=)`: the back end stopped after the
+  demosaic, Lab or the spline, `engine.finish_planes`) counts in
+  `CUT_LAUNCHES[stage_limit]` instead.
 * Host tables reach the card from pinned memory without blocking the host
   (`upload`), so a caller can stage the next batch while this one runs. The
   kernel's demosaic reads a 16-byte table per CFA phase (`demosaic_phases`),
@@ -55,7 +59,7 @@ import numpy as np
 import torch
 
 from ..raw import CFA
-from ..engine import _develop_one, finish_planes
+from ..engine import _develop_one, check_stage_limit, finish_planes
 from ..ops.gofloat import levels
 from ..scaling import resample_aligned, scale_down_axes
 from .demosaic_full import OFFSETS_3X3, stencil_demosaic_shard
@@ -67,8 +71,8 @@ __all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
            "kernel_supported", "spline_stride", "calib_tables", "batch_tables", "demosaic_phases",
            "develop_smem_bytes", "division_mismatches", "upload", "apply_flips", "build",
            "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
-           "BATCH_LAUNCHES", "SP_LAUNCHES", "MAX_PATTERN", "MAX_SMEM", "MAX_LSB",
-           "MAX_FLIP_FRACTION"]
+           "BATCH_LAUNCHES", "SP_LAUNCHES", "CUT_LAUNCHES", "MAX_PATTERN", "MAX_SMEM",
+           "MAX_LSB", "MAX_FLIP_FRACTION"]
 
 # Kernel launches by `develop`, by `develop_batch` and the shard launches of
 # `develop_sp` and `develop_sp_batch` since import (or since a caller reset
@@ -76,6 +80,8 @@ __all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
 SP_LAUNCHES = 0
+# Launches of `develop` cut at stage_limit 1, 2 and 3, by cut.
+CUT_LAUNCHES = {1: 0, 2: 0, 3: 0}
 
 # The cross-path contract: quantized outputs differ by at most 1 LSB, on
 # fewer than 2% of values.
@@ -165,11 +171,11 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.develop_batch_launch.restype = i
         lib.develop_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i, i, i, p, p, i, i,
-                                             p, i, i, i, i, i, p, p]
+                                             p, i, i, i, i, i, i, p, p]
         lib.develop_scaled_batch_launch.restype = i
         lib.develop_scaled_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i,
                                                     p, p, p, p, p, p, i, p, p, i, i,
-                                                    p, i, i, i, i, i, i, i, p, p]
+                                                    p, i, i, i, i, i, i, i, i, p, p]
         lib.division_check_constants.restype = i
         lib.division_check_constants.argtypes = [p, p, p]
         lib.division_check_levels.restype = i
@@ -183,7 +189,8 @@ def _library():
         lib.rotate_cfa_launch.argtypes = [p, i, i, p, p, i, i, f, f, i, i, p, i, i, p, p, i,
                                           i, i, p, p]
         lib.suffix_launch.restype = i
-        lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, p]
+        lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, i,
+                                      p, p, p]
         lib.develop_variant_launch.restype = i
         lib.develop_variant_launch.argtypes = [p, i, i, i, p, i, i, i, i, i, p, p]
         _lib = lib
@@ -402,10 +409,11 @@ def _out(plan, batch: int, height: int, width: int, device) -> torch.Tensor:
 
 
 def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots,
-            x_off: int | None = None) -> torch.Tensor:
+            x_off: int | None = None, stage_limit: int = 4) -> torch.Tensor:
     """One launch over planes [B, H0, W0] -> unflipped [B, 3, H, W]. With
     `x_off`, planes are width shards [B, H, w + 2] (`stage_sp`) of the crop's
-    columns x_off .. x_off + w - 1 -> [B, 3, H, w]."""
+    columns x_off .. x_off + w - 1 -> [B, 3, H, w]. stage_limit: 4, or a
+    cut 1..3 of a whole-image launch."""
     smem = develop_smem_bytes(*pattern.shape, spline.shape[-1])
     if smem > MAX_SMEM:
         raise ValueError(f"develop kernel: a block needs {smem} B of shared memory "
@@ -425,7 +433,7 @@ def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots,
             planes.stride(1), in_x0, crop_y, plan.height, plan.width, x_off, out_width,
             scal.data_ptr(), spline.data_ptr(), spline.shape[-1], n_knots,
             phases.data_ptr(), pattern.shape[0], pattern.shape[1],
-            int(plan.mode == "mono"), int(plan.linear), plan.out_bits,
+            int(plan.mode == "mono"), int(plan.linear), plan.out_bits, stage_limit,
             out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"develop kernel launch failed: cudaError {rc}")
@@ -477,9 +485,9 @@ def division_mismatches(pairs=(), f32_pairs=(), device="cuda") -> dict:
     return out
 
 
-def develop_plain(plan, plane: torch.Tensor) -> torch.Tensor:
+def develop_plain(plan, plane: torch.Tensor, stage_limit: int = 4) -> torch.Tensor:
     """The kernel's computation in plain PyTorch, on the plane's device."""
-    return _develop_one(plan, plane, "direct")
+    return _develop_one(plan, plane, "direct", stage_limit)
 
 
 def develop_batch_plain(plans, planes: torch.Tensor) -> torch.Tensor:
@@ -487,16 +495,22 @@ def develop_batch_plain(plans, planes: torch.Tensor) -> torch.Tensor:
     return torch.stack([develop_plain(p, planes[i]) for i, p in enumerate(plans)])
 
 
-def develop(plan, plane: torch.Tensor) -> torch.Tensor:
+def develop(plan, plane: torch.Tensor, stage_limit: int = 4) -> torch.Tensor:
     """Develop the uncropped sensor plane [H0, W0] (u16 or f32) of a
-    full-size cfa/mono plan -> quantized planar [3, H', W'] u8/u16."""
+    full-size cfa/mono plan -> quantized planar [3, H', W'] u8/u16; with
+    stage_limit 1..3 the back end cut there (`engine.finish_planes`)."""
+    stage_limit = check_stage_limit(stage_limit)
     if plane.device.type == "cpu":
-        return develop_plain(plan, plane)
+        return develop_plain(plan, plane, stage_limit)
     _check_kernel(plan, plane.device)
     check_plane(plan, plane, "develop kernel")
-    out = _launch(plan, plane[None], *_device_tables(plan, plane.device))
+    out = _launch(plan, plane[None], *_device_tables(plan, plane.device),
+                  stage_limit=stage_limit)
     global LAUNCHES
-    LAUNCHES += 1
+    if stage_limit == 4:
+        LAUNCHES += 1
+    else:
+        CUT_LAUNCHES[stage_limit] += 1
     return apply_flips(out[0], plan.orientation_flips)
 
 

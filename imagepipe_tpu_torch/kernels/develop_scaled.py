@@ -36,7 +36,10 @@ is shared, the calibration each image's own. It replaces
   the TPU's tiles; this kernel reads the uncropped plane, so they have no
   counterpart (`imagepipe_tpu_torch._surface.NOT_PORTED`).
 * `LAUNCHES` counts the launches of `develop_scaled` and `BATCH_LAUNCHES`
-  those of `develop_scaled_batch`. The library is built and bound by
+  those of `develop_scaled_batch`; `develop_scaled(..., stage_limit=k)`
+  with a cut k of 1..3 (the JAX function's profiling knob: the back end
+  stopped after the demosaic, Lab or the spline, `engine.finish_planes`)
+  counts in `CUT_LAUNCHES[k]` instead. The library is built and bound by
   kernels/develop.py, with the full-size kernel.
 
 Numerics: with one lane per pixel the RGBE sums equal the plain version's
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 from ..raw import CFA
-from ..engine import _develop_one
+from ..engine import _develop_one, check_stage_limit
 from ..scaling import aligned_axes
 from . import develop as kdev
 
@@ -62,12 +65,14 @@ __all__ = ["develop_scaled", "develop_scaled_plain", "develop_scaled_batch",
            "develop_scaled_batch_plain", "scaled_supported", "scaled_geometry",
            "ScaledLaunchPlan", "window_split", "scaled_smem_bytes", "scaled_plan",
            "ScaledPlan", "scaled_plan_for",
-           "LAUNCHES", "BATCH_LAUNCHES", "THREADS"]
+           "LAUNCHES", "BATCH_LAUNCHES", "CUT_LAUNCHES", "THREADS"]
 
 # Kernel launches by `develop_scaled` and by `develop_scaled_batch` since
 # import (or since a caller reset them to 0).
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
+# Launches of `develop_scaled` cut at stage_limit 1, 2 and 3, by cut.
+CUT_LAUNCHES = {1: 0, 2: 0, 3: 0}
 
 _f32 = np.float32
 
@@ -216,9 +221,9 @@ def scaled_plan_for(plan) -> ScaledPlan | None:
                       stride)
 
 
-def develop_scaled_plain(plan, plane: torch.Tensor) -> torch.Tensor:
+def develop_scaled_plain(plan, plane: torch.Tensor, stage_limit: int = 4) -> torch.Tensor:
     """The kernel's computation in plain PyTorch, on the plane's device."""
-    return _develop_one(plan, plane, "direct")
+    return _develop_one(plan, plane, "direct", stage_limit)
 
 
 def develop_scaled_batch_plain(plans, planes: torch.Tensor) -> torch.Tensor:
@@ -236,8 +241,10 @@ def _check_kernel(plan, device) -> None:
                          f"cfa {plan.cfa_name!r})")
 
 
-def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots) -> torch.Tensor:
-    """One launch over planes [B, H0, W0] -> unflipped [B, 3, dem_h, dem_w]."""
+def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots,
+            stage_limit: int = 4) -> torch.Tensor:
+    """One launch over planes [B, H0, W0] -> unflipped [B, 3, dem_h, dem_w],
+    the back end cut at `stage_limit`."""
     g = scaled_geometry(plan, planes.device)
     lp = scaled_plan(plan, spline.shape[-1])
     out = kdev._out(plan, planes.shape[0], plan.dem_h, plan.dem_w, planes.device)
@@ -253,27 +260,33 @@ def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots) 
             scal.data_ptr(), spline.data_ptr(), spline.shape[-1], n_knots,
             pattern.data_ptr(), pattern.shape[0], pattern.shape[1],
             lp.sx, lp.tc, lp.tr,
-            int(plan.linear), plan.out_bits, out.data_ptr(), stream)
+            int(plan.linear), plan.out_bits, stage_limit, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"develop_scaled kernel launch failed: cudaError {rc}")
     return out
 
 
-def develop_scaled(plan, plane: torch.Tensor, sp: ScaledPlan | None = None) -> torch.Tensor:
+def develop_scaled(plan, plane: torch.Tensor, sp: ScaledPlan | None = None,
+                   stage_limit: int = 4) -> torch.Tensor:
     """Develop the uncropped sensor plane [H0, W0] (u16 or f32) of a
     'scaled' cfa plan -> quantized planar [3, dem_h, dem_w] u8/u16, flipped
-    to the plan's orientation. `sp`, the shape class's `scaled_plan_for`,
-    is checked against the plan; the launch reads the plan's own memoized
-    geometry, which `sp` records."""
+    to the plan's orientation; with stage_limit 1..3 the back end cut there.
+    `sp`, the shape class's `scaled_plan_for`, is checked against the plan;
+    the launch reads the plan's own memoized geometry, which `sp` records."""
+    stage_limit = check_stage_limit(stage_limit)
     if sp is not None:
         sp.check(plan)
     if plane.device.type == "cpu":
-        return develop_scaled_plain(plan, plane)
+        return develop_scaled_plain(plan, plane, stage_limit)
     _check_kernel(plan, plane.device)
     kdev.check_plane(plan, plane, "develop_scaled kernel")
-    out = _launch(plan, plane[None], *kdev._device_tables(plan, plane.device))
+    out = _launch(plan, plane[None], *kdev._device_tables(plan, plane.device),
+                  stage_limit=stage_limit)
     global LAUNCHES
-    LAUNCHES += 1
+    if stage_limit == 4:
+        LAUNCHES += 1
+    else:
+        CUT_LAUNCHES[stage_limit] += 1
     return kdev.apply_flips(out[0], plan.orientation_flips)
 
 

@@ -9,27 +9,30 @@ and the final quantize, in one launch of csrc/suffix.cu, and returns
 `keep` asks for it (else None), and the [3, H', W'] u8 or u16 output where
 `quant` is 8 or 16 (else None).
 
-* A segment on the CPU goes to the plain version, `suffix_plain`: the
-  stages composed from the port's color.py and spline.py functions, as the
-  ops' `run` composes them, in the numerics the device resolves ('lut' on
-  the CPU). A segment on a CUDA device launches the kernel, or the wrapper
-  raises; nothing falls back.
+* A segment runs in the numerics its ops resolve (`color.resolve_numerics`:
+  the override of `color.numerics_mode` where one is set, else 'lut' on
+  the CPU and 'direct' on CUDA). On the CPU it goes to the plain version,
+  `suffix_plain`: the stages composed from the port's color.py and
+  spline.py functions, as the ops' `run` composes them. On a CUDA device
+  it launches the kernel in that numerics' form, or the wrapper raises;
+  nothing falls back.
 * Per stage, `params` holds its host values as `ImageOp.device_chain`
   gives them: to_lab (WB multipliers [4], camera matrix [3, 4]), basecurve
   (the spline's coefficients [5, n]: xs, ys, c1, c2, c3, the last two
   n - 1 long and padded), from_lab (the XYZ->RGB matrix [3, 3]), gamma
   (), transform (transpose, flip_x, flip_y). The kernel takes them as one
   float32 table (`pack_params`), one small pinned upload per launch.
-* Under a 'lut' numerics override (`color.numerics_mode`) a segment on
-  CUDA does not fuse (`fuses`): the pipeline runs its ops' `run`.
-* `LAUNCHES` counts the kernel's launches. The library is built and bound
-  by kernels/develop.py, with the other kernels.
+* The 'lut' form reads color.TransformLUT's tables from their device
+  copies (`TransformLUT._table`, made once per device), not uploaded per
+  launch.
+* `LAUNCHES` counts the kernel's launches in 'direct' numerics,
+  `LUT_LAUNCHES` those in 'lut'. The library is built and bound by
+  kernels/develop.py, with the other kernels.
 
 Numerics: every operation of the kernel is an explicit round-to-nearest
 intrinsic in the plain version's order, with torch's NaN rules, so on the
-card the two agree bit for bit (chip_smoke.py phase 1e, NaN and +-Inf
-inputs included); the kernel has 'direct' numerics only, which is what
-the ops resolve to on CUDA.
+card the two agree bit for bit in either numerics (chip_smoke.py phase
+1e, NaN and +-Inf inputs included).
 """
 
 from __future__ import annotations
@@ -41,11 +44,13 @@ from .. import color as cc
 from ..spline import eval_spline_arrays
 from . import develop as kdev
 
-__all__ = ["run_suffix", "suffix_plain", "pack_params", "check_segment", "STAGES",
-           "LAUNCHES"]
+__all__ = ["run_suffix", "suffix_plain", "pack_params", "check_segment", "fuses", "STAGES",
+           "LAUNCHES", "LUT_LAUNCHES"]
 
-# Kernel launches by `run_suffix` since import (or since a caller reset it).
+# Kernel launches by `run_suffix` in 'direct' and in 'lut' numerics since
+# import (or since a caller reset them).
 LAUNCHES = 0
+LUT_LAUNCHES = 0
 
 # The stages a segment may hold, in the order they run (each at most once).
 STAGES = ("to_lab", "basecurve", "from_lab", "gamma", "transform")
@@ -100,13 +105,10 @@ def _stage_plain(stage: str, x: torch.Tensor, p, numerics: str) -> torch.Tensor:
 
 
 def fuses(device) -> bool:
-    """Whether a segment on `device` runs fused in the numerics its ops
-    resolve (`color.resolve_numerics`, the override included): on the CPU
-    always (the plain version computes either), on CUDA only in 'direct'
-    (the kernel's only form). Where it does not, the pipeline runs the
-    segment's ops' `run` in turn, launching nothing."""
-    device = torch.device(device)
-    return device.type == "cpu" or cc.resolve_numerics("auto", device) == "direct"
+    """Whether a segment on `device` runs fused: on the CPU (the plain
+    version) and on CUDA (the kernel), in either numerics. Elsewhere the
+    pipeline runs the segment's ops' `run` in turn."""
+    return torch.device(device).type in ("cpu", "cuda")
 
 
 def suffix_plain(data: torch.Tensor, stages, params, quant=None, keep=None,
@@ -142,17 +144,21 @@ def pack_params(stages, params) -> tuple[np.ndarray, int]:
     return table, coeffs.shape[1]
 
 
-def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None):
+def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None,
+               numerics: str = "auto"):
     """One fused segment: `stages` (a run of STAGES, in order) with their
     `params` on `data`, keeping the outputs `keep` flags (all by default),
-    quantized to `quant` bits after the last stage when it is 8 or 16.
-    Returns (outputs, quantized) on the input's device. A frame with no
-    pixels gives empty outputs and launches nothing."""
+    quantized to `quant` bits after the last stage when it is 8 or 16, in
+    `numerics` ('auto' resolves as the staged ops do,
+    `color.resolve_numerics`). Returns (outputs, quantized) on the input's
+    device. A frame with no pixels gives empty outputs and launches
+    nothing."""
     stages = tuple(stages)
     keep = [True] * len(stages) if keep is None else [bool(k) for k in keep]
     check_segment(data, stages, params, quant, keep)
+    numerics = cc.resolve_numerics(numerics, data.device)
     if data.device.type == "cpu":
-        return suffix_plain(data, stages, params, quant, keep)
+        return suffix_plain(data, stages, params, quant, keep, numerics)
     if data.device.type != "cuda":
         raise ValueError(f"suffix kernel: unsupported device {data.device}")
     _, height, width = data.shape
@@ -172,6 +178,9 @@ def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None):
         for s, o in zip(stages, outs):
             ptr[s] = None if o is None else o.data_ptr()
         bits = sum(1 << STAGES.index(s) for s in stages)
+        lut = numerics == "lut"
+        tables = [t._table(data.device).data_ptr() if lut else None
+                  for t in (cc.XYZ_LAB_TRANSFORM, cc.SRGB_GAMMA_TRANSFORM)]
         lib = kdev._library()
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
@@ -179,11 +188,14 @@ def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None):
                 data.data_ptr(), data.stride(0), data.stride(1), height, width, bits,
                 table.data_ptr(), n_knots, int(bool(flip_x)), int(bool(flip_y)),
                 *(ptr[s] for s in STAGES), None if q is None else q.data_ptr(), quant or 0,
-                stream)
+                int(lut), *tables, stream)
         if rc != 0:
             raise RuntimeError(f"suffix kernel launch failed: cudaError {rc}")
-        global LAUNCHES
-        LAUNCHES += 1
+        global LAUNCHES, LUT_LAUNCHES
+        if lut:
+            LUT_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
     if transpose:
         # The flips were stores; the transpose is a view, as apply_flips
         # returns it.

@@ -22,12 +22,12 @@ hashing and serials are byte-identical to the JAX package's. The routing of
   basecurve, from_lab, gamma, transform) with two or more real stages, or
   one at the chain's end with the output's quantize, runs as one segment
   (`_dispatch_fused`): on CUDA one launch of the suffix kernel
-  (kernels/suffix.py), bit-equal to running the ops' `run` in turn, every
-  stage still cached. The other ops run their `run`; a rotated frame's
-  rotatecrop launches the rotate kernel on CUDA (kernels/rotate.py).
-  `FUSE_SUFFIX = False` runs every op's `run` instead, and so does a
-  'lut' numerics override (`color.numerics_mode`) on CUDA, where the
-  kernel, 'direct' only, cannot take a segment.
+  (kernels/suffix.py) in the numerics the ops resolve ('direct', or 'lut'
+  under a `color.numerics_mode` override), bit-equal to running the ops'
+  `run` in turn, every stage still cached. The other ops run their `run`;
+  a rotated frame's rotatecrop launches the rotate kernel on CUDA
+  (kernels/rotate.py). `FUSE_SUFFIX = False` runs every op's `run`
+  instead.
 
 A Pipeline develops on one device, chosen when it is made: `device=None`
 is `default_device()`, the first CUDA device; the CPU only when asked for.
@@ -320,10 +320,9 @@ class Pipeline:
         """Run ops[startpos:], caching each stage's result under its chain
         hash (pipeline.rs:354-372). Each maximal run of joining ops fuses
         into one segment when that saves a launch: two or more real stages,
-        or one at the chain's end with the quantize joining, and the
-        segment's device runs it in the numerics its ops resolve
-        (`ksuffix.fuses`: not the kernel under a 'lut' override on CUDA,
-        where the ops run their `run`). A declining op (an active
+        or one at the chain's end with the quantize joining, on a device
+        that fuses (`ksuffix.fuses`: the CPU and CUDA), in the numerics its
+        ops resolve, the 'lut' override included. A declining op (an active
         rotatecrop) runs its `run`, and fusion starts again after it.
         Records the host ms of each stage or segment (keyed by the
         segment's op names joined by '+'). Returns (final OpBuffer,

@@ -4,7 +4,8 @@ registers and instructions.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 scripts/time_develop_kernels.py [--label NAME] [--kernels develop,rotate,suffix]
+    python3 scripts/time_develop_kernels.py [--label NAME]
+                                            [--kernels develop,rotate,suffix,suffix_lut,cuts]
                                             [--rotate-tile-h 8,16,32]
 
 It times whichever `imagepipe_tpu_torch` is first on the import path, so two
@@ -21,7 +22,15 @@ route (`kernels.rotate.TILE_H`, where the version has one). `--kernels
 suffix` times the fused-suffix kernel (`kernels.suffix.run_suffix`, in
 versions that have it) for each segment start at the two 24 MP frames of
 `SUFFIX_SHAPES`, and beside it the eager stages it replaces
-(`suffix_plain`, the per-stage loop's torch ops) on the same inputs.
+(`suffix_plain`, the per-stage loop's torch ops) on the same inputs;
+`--kernels suffix_lut` the same kernel's 'lut' form from to_lab on the
+5981x4458 frame (`run_suffix(..., numerics="lut")`, in versions that have
+it), beside the eager stages in 'lut'. `--kernels cuts` times the develop
+kernels cut at each `stage_limit` (`develop(plan, plane, stage_limit=k)`
+and `develop_scaled(..., stage_limit=k)` for k = 1, 2, 3, 4, in versions
+that have it) at 24 MP Bayer 8-bit, full size and -> 1024, so the
+differences split the back end: the demosaic (cut 1), Lab (2 - 1), the
+tone spline (3 - 2), Lab^-1 + XYZ->RGB + gamma (4 - 3).
 `--kernels rotate_cfa` times the rotate kernel's CFA route
 (`kernels.rotate.rotate_resample_cfa`, in versions that have it) on one
 [1, 4000, 6000] float32 sensor plane (RGGB) at the three rotatecrop
@@ -109,6 +118,12 @@ OPS_LEVELS = 3
 # camera matrix 21, XYZ scaling 3, three lab_f 24, L/A/B 11, Lab^-1 30,
 # XYZ->RGB 15, gamma 30, quantize 12.
 OPS_FINISH = 154
+# The back end cut at stage_limit 1 (quantize 12), 2 (WB, matrix, XYZ
+# scaling, lab_f, L/A/B and the quantize) and 3 (the same plus the tone
+# spline, OPS_SPLINE plus a compare per knot but the first, where the plan
+# has a curve).
+OPS_CUT = {1: 12, 2: 79, 3: 79}
+OPS_SPLINE = 12
 # The 3x3 demosaic per Bayer pixel, averaged over a quad: at R and B the
 # two other colours sum four neighbours each (3 adds and a division), at G
 # two each (1 add and a division): (8 + 4 + 4 + 8) / 4.
@@ -156,6 +171,12 @@ EAGER_LAUNCHES = 6       # calls of the eager stages per timed run
 # compare, linear side), transform (none), and the quantize.
 OPS_SUFFIX = {"to_lab": 54, "basecurve": 12, "from_lab": 36, "gamma": 12, "transform": 0}
 OPS_QUANT = {8: 9, 16: 18}
+# In 'lut' numerics each cube root and each gamma is a table lookup inside
+# [0, 1] (a real frame's values; range test 2, pos, trunc, clamp 2, a, the
+# lerp 3: 10): to_lab 54 - 12 + 3 x 10, gamma 3 x (clamp 2 + 10). Each
+# lookup table, LUT_ENTRIES float32, is read once.
+OPS_SUFFIX_LUT = dict(OPS_SUFFIX, to_lab=72, gamma=36)
+LUT_ENTRIES = 8193
 
 # Opcodes counted in each kernel's SASS: special-function unit calls
 # (MUFU.RCP of a division, MUFU.LG2/EX2 of logf/expf), the division's
@@ -178,16 +199,27 @@ def roofline(read_bytes, write_bytes, ops) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def develop_bound(plan, plane) -> tuple[float, str]:
-    """The full-size develop's bound for one Bayer plane."""
+def finish_ops(plan, stage_limit=4) -> int:
+    """The back end's float32 operations per output pixel, cut at
+    stage_limit (OPS_FINISH, OPS_CUT)."""
+    if stage_limit == 4:
+        return OPS_FINISH
+    spline = OPS_SPLINE + plan.n_knots - 1 if plan.apply_curve and stage_limit == 3 else 0
+    return OPS_CUT[stage_limit] + spline
+
+
+def develop_bound(plan, plane, stage_limit=4) -> tuple[float, str]:
+    """The full-size develop's bound for one Bayer plane, the back end cut
+    at stage_limit."""
     px = plan.height * plan.width
     return roofline(px * plane.element_size(), 3 * px * plan.out_bits // 8,
-                  px * (OPS_LEVELS + OPS_DEMOSAIC_BAYER + OPS_FINISH))
+                  px * (OPS_LEVELS + OPS_DEMOSAIC_BAYER + finish_ops(plan, stage_limit)))
 
 
-def scaled_bound(plan, plane) -> tuple[float, str]:
+def scaled_bound(plan, plane, stage_limit=4) -> tuple[float, str]:
     """The thumbnail develop's bound for one plane: the window samples this
-    geometry has (from its tables), levels once per source sample."""
+    geometry has (from its tables), levels once per source sample; the back
+    end cut at stage_limit."""
     g = {k: v.cpu().numpy().astype(np.int64) for k, v in kds.scaled_geometry(plan).items()
          if k in ("from_x", "to_x", "from_y", "to_y")}
     samples = int((g["to_x"] - g["from_x"] + 1).sum()) * int((g["to_y"] - g["from_y"] + 1).sum())
@@ -195,7 +227,7 @@ def scaled_bound(plan, plane) -> tuple[float, str]:
     out_px = plan.dem_h * plan.dem_w
     return roofline(src_px * plane.element_size(), 3 * out_px * plan.out_bits // 8,
                   src_px * OPS_LEVELS + samples * OPS_WINDOW_SAMPLE
-                  + out_px * (OPS_SCALED_PIXEL + OPS_FINISH))
+                  + out_px * (OPS_SCALED_PIXEL + finish_ops(plan, stage_limit)))
 
 
 def rotatecrop_geometry(rotation, crop_left, width, height):
@@ -335,25 +367,34 @@ def suffix_segment(device, bits=8, orientation="Normal", mono=False, exposure=0.
     return [(c[1], c[2]) for c in chains]
 
 
-def suffix_bound(stages, params, height, width, keep, quant) -> tuple[float, str]:
+def suffix_bound(stages, params, height, width, keep, quant,
+                 numerics="direct") -> tuple[float, str]:
     """The suffix kernel's bound: the input planes read once, each kept
-    stage output and the quantized output written once, and OPS_SUFFIX."""
+    stage output and the quantized output written once, and OPS_SUFFIX
+    (OPS_SUFFIX_LUT in 'lut', whose tables are read once too)."""
     px = height * width
     planes = 4 if stages[0] == "to_lab" else 3
-    ops = sum(OPS_SUFFIX[s] for s in stages) + (OPS_QUANT[quant] if quant else 0)
+    ops_of = OPS_SUFFIX_LUT if numerics == "lut" else OPS_SUFFIX
+    ops = sum(ops_of[s] for s in stages) + (OPS_QUANT[quant] if quant else 0)
     if "basecurve" in stages:
         ops += np.asarray(dict(zip(stages, params))["basecurve"][0]).shape[1] - 1
     written = 3 * px * (4 * sum(bool(k) for k in keep) + (quant // 8 if quant else 0))
-    return roofline(planes * px * 4, written, px * ops)
+    tables = 4 * LUT_ENTRIES * sum(s in ("to_lab", "gamma") for s in stages)
+    read = planes * px * 4 + (tables if numerics == "lut" else 0)
+    return roofline(read, written, px * ops)
 
 
-def suffix_times(device) -> dict:
+def suffix_times(device, numerics="direct", starts=SUFFIX_STARTS, oriented=SUFFIX_ORIENTED,
+                 shapes=SUFFIX_SHAPES) -> dict:
     """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by,
-    eager_ms, eager_runs}} for the suffix kernel at each segment start of
-    SUFFIX_STARTS on the frames of SUFFIX_SHAPES (8-bit, Normal, every stage
-    kept) and from to_lab at the orientations of SUFFIX_ORIENTED, and the
-    eager stages on the same inputs."""
+    eager_ms, eager_runs}} for the suffix kernel in `numerics` at each
+    segment start of `starts` on the frames of `shapes` (8-bit, Normal,
+    every stage kept) and from to_lab at the orientations of `oriented`,
+    and the eager stages on the same inputs. A 'lut' case's label says so;
+    its bound counts the same bytes and OPS_SUFFIX_LUT."""
     from imagepipe_tpu_torch.kernels import suffix as ksuf
+
+    form = {} if numerics == "direct" else {"numerics": numerics}
 
     def real(orientation):
         seg = [(s, p) for s, p in suffix_segment(device, orientation=orientation)
@@ -361,26 +402,28 @@ def suffix_times(device) -> dict:
         return [s for s, _ in seg], [p for _, p in seg]
 
     stages, params = real("Normal")
-    cases = [(start, "Normal") for start in SUFFIX_STARTS]
-    cases += [("to_lab", o) for o in SUFFIX_ORIENTED]
+    cases = [(start, "Normal") for start in starts]
+    cases += [("to_lab", o) for o in oriented]
     out = {}
-    for width, height in SUFFIX_SHAPES:
+    for width, height in shapes:
         gen = torch.Generator(device=device).manual_seed(9)
         bases = [torch.rand((4, height, width), generator=gen, device=device)
                  for _ in range(INPUTS)]
-        inter = [ksuf.suffix_plain(b, stages, params)[0] for b in bases]
+        inter = [ksuf.suffix_plain(b, stages, params, **form)[0] for b in bases]
         for start, orientation in cases:
             k = SUFFIX_STARTS.index(start)
             ins = bases if k == 0 else [o[k - 1] for o in inter]
             st, pa = real(orientation)
             st, pa = st[k:], pa[k:]
             keep = [True] * len(st)
-            fns = [lambda x=x: ksuf.run_suffix(x, st, pa, 8, keep) for x in ins]
+            fns = [lambda x=x: ksuf.run_suffix(x, st, pa, 8, keep, **form) for x in ins]
             label = (f"suffix {width}x{height} from {start} to the 8-bit output, every stage "
-                     f"kept{'' if orientation == 'Normal' else ', ' + orientation}")
-            t = _entry(fns, fns[0], suffix_bound(st, pa, height, width, keep, 8), device)
-            eager = device_ms([lambda x=x: ksuf.suffix_plain(x, st, pa, 8, keep) for x in ins],
-                              device, EAGER_LAUNCHES, REPEATS)
+                     f"kept{'' if orientation == 'Normal' else ', ' + orientation}"
+                     f"{'' if not form else f', {numerics!r}'}")
+            t = _entry(fns, fns[0], suffix_bound(st, pa, height, width, keep, 8, numerics),
+                       device)
+            eager = device_ms([lambda x=x: ksuf.suffix_plain(x, st, pa, 8, keep, **form)
+                               for x in ins], device, EAGER_LAUNCHES, REPEATS)
             t["eager_ms"], t["eager_runs"] = eager["ms"], eager["runs"]
             out[label] = t
         del bases, inter
@@ -500,6 +543,36 @@ def kernel_times(device) -> dict:
     return out
 
 
+CUTS = (1, 2, 3, 4)      # stage_limit: after the demosaic, Lab, the spline; the whole chain
+
+
+def cut_label(kernel, k, maxwidth=0) -> str:
+    return (f"{kernel} 24 MP Bayer 8-bit{f' -> {maxwidth}' if maxwidth else ''} "
+            f"stage_limit {k}")
+
+
+def cut_times(device, maxwidths=(0, 1024)) -> dict:
+    """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by}} for
+    the develop kernel (maxwidth 0) and the scaled kernel (-> maxwidth) cut
+    at each stage_limit of CUTS, on the plans and planes `kernel_times`
+    times the whole kernels on (24 MP Bayer 8-bit); the cuts of one kernel
+    are timed one after another, so their differences split its back end."""
+    bayer = [traw.synthetic_bayer(*BAYER, seed=20 + i) for i in range(INPUTS)]
+    planes = [_upload(r, device) for r in bayer]
+    out = {}
+    for maxwidth in maxwidths:
+        plan = plan_for(bayer[0], 8, device, maxwidth=maxwidth)
+        fn, bound_of, kernel = ((kdev.develop, develop_bound, "develop") if not maxwidth else
+                                (kds.develop_scaled, scaled_bound, "develop_scaled"))
+        for k in CUTS:
+            fns = [lambda p=p, k=k: fn(plan, p, stage_limit=k) for p in planes]
+            out[cut_label(kernel, k, maxwidth)] = _entry(fns, fns[0],
+                                                         bound_of(plan, planes[0], k), device)
+    del planes
+    torch.cuda.empty_cache()
+    return out
+
+
 def rotate_times(device, tile_hs=()) -> dict:
     """{case: {ms, runs, host_bound, from_idle_ms, bound_ms, bound_by}} for
     the rotate kernel at the ROTATE_CASES geometries of one 24 MP source,
@@ -610,7 +683,7 @@ def main() -> int:
     ap.add_argument("--json", help="also write the result line to this file")
     ap.add_argument("--kernels", default="develop,rotate",
                     help="comma-separated: develop (the develop and scaled kernels), rotate, "
-                         "rotate_cfa, suffix")
+                         "rotate_cfa, suffix, suffix_lut, cuts")
     ap.add_argument("--rotate-tile-h", default="",
                     help="comma-separated staged tile heights to time the rotate kernel at too")
     args = ap.parse_args()
@@ -641,6 +714,10 @@ def main() -> int:
         result["times"].update(rotate_cfa_times(device))
     if "suffix" in kernels:
         result["times"].update(suffix_times(device))
+    if "suffix_lut" in kernels:
+        result["times"].update(suffix_times(device, "lut", ("to_lab",), (), SUFFIX_SHAPES[1:]))
+    if "cuts" in kernels:
+        result["times"].update(cut_times(device))
     for k, v in result["times"].items():
         eager = f"; eager stages {v['eager_ms']:.4f} ms device" if "eager_ms" in v else ""
         print(f"  {k}: {v['ms']:.4f} ms device (runs {v['runs']}{', HOST-BOUND' if v['host_bound'] else ''}), "

@@ -11,10 +11,10 @@ engine resolve by device alone, as the JAX plans resolve by backend.
 A staged render of the same DNG (the JAX package's staged path, not its
 fused engine: ROADMAP C, its 16-bit miss) under the same override in both
 packages: max |diff| <= 1 LSB on under 2% of values (kernels/develop.py
-MAX_LSB, MAX_FLIP_FRACTION). On CUDA the suffix kernel computes 'direct'
-only, so under a 'lut' override a segment runs its ops' `run`: the routing
-is a function (`kernels/suffix.fuses`) tested here without a card, and on
-the card by the `cuda` case.
+MAX_LSB, MAX_FLIP_FRACTION). A segment fuses on the CPU and on CUDA in
+either mode, the suffix kernel on CUDA computing the one the ops resolve:
+the routing is a function (`kernels/suffix.fuses`) tested here without a
+card, and on the card by the `cuda` case.
 """
 
 import numpy as np
@@ -188,11 +188,11 @@ def test_raster_ingest_follows_the_override():
 
 
 @pytest.mark.parametrize("mode,device,fuses", [
-    ("lut", "cuda", False), ("direct", "cuda", True), (None, "cuda", True),
+    ("lut", "cuda", True), ("direct", "cuda", True), (None, "cuda", True),
     ("lut", "cpu", True), ("direct", "cpu", True), (None, "cpu", True)])
 def test_segment_routing(mode, device, fuses):
-    """A segment on CUDA fuses (launches the kernel) only in 'direct'; on
-    the CPU the plain version computes either mode."""
+    """A segment fuses in either mode: on CUDA the kernel has a 'lut' and
+    a 'direct' form, on the CPU the plain version computes either mode."""
     tcc._NUMERICS_MODE = mode
     assert ksuffix.fuses(torch.device(device)) is fuses
 
@@ -200,15 +200,17 @@ def test_segment_routing(mode, device, fuses):
 @pytest.mark.parametrize("mode", MODES)
 def test_lut_on_a_cuda_buffer_runs_the_ops(dng_path, monkeypatch, mode):
     """The pipeline asks `fuses` for the segment's device; with a buffer
-    that claims a CUDA device, a 'lut' override runs every op's `run`
-    (no run_suffix call, no launch), bit-equal to FUSE_SUFFIX = False and
-    with the same cache entries; 'direct' fuses."""
+    that claims a CUDA device, either override fuses the segment: one
+    run_suffix call in the overriding mode (the CPU buffer takes the plain
+    version, no launch), bit-equal to FUSE_SUFFIX = False and with the
+    same cache entries."""
     real = ksuffix.fuses
     monkeypatch.setattr(ksuffix, "fuses", lambda device: real(torch.device("cuda")))
     calls = []
 
     def spy(*args, **kwargs):
-        calls.append(args[1])
+        calls.append((args[1], tcc.resolve_numerics(kwargs.get("numerics", "auto"),
+                                                    args[0].device)))
         return real_run(*args, **kwargs)
 
     real_run = ksuffix.run_suffix
@@ -223,7 +225,7 @@ def test_lut_on_a_cuda_buffer_runs_the_ops(dng_path, monkeypatch, mode):
             cache = MultiCache(1 << 28)
             outs[fuse] = (np.asarray(p.output_8bit(cache).data), len(cache))
     assert ksuffix.LAUNCHES == before
-    assert (len(calls) == 0) is (mode == "lut"), calls
+    assert [m for _, m in calls] == [mode], calls
     np.testing.assert_array_equal(outs[True][0], outs[False][0])
     assert outs[True][1] == outs[False][1] == 8
 
@@ -231,18 +233,19 @@ def test_lut_on_a_cuda_buffer_runs_the_ops(dng_path, monkeypatch, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 16])
 def test_lut_staged_render_on_card(dng_path, bits):
-    """On the card: a 'lut' staged render launches no suffix kernel and
-    holds the contract against the JAX staged render in 'lut' and the
-    port's 'direct' render; after the context, 'direct' launches again."""
+    """On the card: a 'lut' staged render launches the suffix kernel's
+    'lut' form once and holds the contract against the JAX staged render
+    in 'lut' and the port's 'direct' render; after the context, 'direct'
+    launches the 'direct' form."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the staged path's kernels have no CPU form")
     jcc.set_numerics_mode("lut")
     want = _staged(jip.Pipeline.new_from_file(dng_path), bits, rotation=0.05)
-    before = ksuffix.LAUNCHES
+    before = ksuffix.LAUNCHES, ksuffix.LUT_LAUNCHES
     with tcc.numerics_mode("lut"):
         got = _staged(tip.Pipeline.new_from_file(dng_path, device="cuda"), bits, rotation=0.05)
-    assert ksuffix.LAUNCHES == before
+    assert (ksuffix.LAUNCHES, ksuffix.LUT_LAUNCHES) == (before[0], before[1] + 1)
     _assert_contract(got, want)
     direct = _staged(tip.Pipeline.new_from_file(dng_path, device="cuda"), bits, rotation=0.05)
-    assert ksuffix.LAUNCHES == before + 1
+    assert (ksuffix.LAUNCHES, ksuffix.LUT_LAUNCHES) == (before[0] + 1, before[1] + 1)
     _assert_contract(direct, got)
