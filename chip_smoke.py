@@ -168,12 +168,17 @@ Phases, each ending in torch.cuda.synchronize():
      full) of form A and B on u16 and f32 24 MP planes to u8 and (form B)
      f32 outputs, once through run_variant with the counts set to 0 just
      before and read just after (one launch per rung of its form, no other
-     kernel); each held to its plain version on the card (u8 max |diff| <=
-     1 LSB on < 2% of values, f32 max |diff| <= 1e-3; dma_floor form A also
-     at a 32 x 768 TPU tile); then every rung timed as the develop kernels
-     are, beside kernels.develop.develop on the same plan and planes
-     (scripts/torch_kernel_variants.py), with the plain versions from idle
-     and noop form B beside Tensor.zero_(). The kernels line's
+     kernel; the 24 MP planes load by TMA); each held to its plain version
+     on the card (u8 max |diff| <= 1 LSB on < 2% of values, f32 bit for
+     bit; dma_floor form A also at a 32 x 768 TPU tile); then every rung
+     again on 6001 x 4001 planes (rows off 16 bytes: the vector-load route,
+     counted in kv.ROUTE_LAUNCHES), held the same way; each rung's route
+     and tile height printed; then every rung timed as the develop kernels
+     are, beside kernels.develop.develop cut after the demosaic and whole
+     on the same plan and planes (scripts/torch_kernel_variants.py), with
+     the plain versions from idle, noop beside one PyTorch call (form B
+     Tensor.zero_(), form A a copy of its three values), the previous
+     design's times and the bounds. The kernels line's
      `develop_variants` row is rung full_A_u16_u8 and `develop_variants3`
      rung noop_B_u16_u8 (library: zero_());
   2c. the staged edit path at full width: a 24 MP Bayer DNG through
@@ -372,6 +377,7 @@ def _reset_counts():
     krot.LAUNCHES = krot.DIRECT_LAUNCHES = krot.CFA_LAUNCHES = krot.CFA_DIRECT_LAUNCHES = 0
     ksuf.LAUNCHES = ksuf.LUT_LAUNCHES = 0
     kv.VARIANT_LAUNCHES.update(A=0, B=0)
+    kv.ROUTE_LAUNCHES.update(dict.fromkeys(kv.ROUTE_LAUNCHES, 0))
     for cuts in (kdev.CUT_LAUNCHES, kds.CUT_LAUNCHES):
         cuts.update(dict.fromkeys(cuts, 0))
 
@@ -2013,31 +2019,51 @@ def phase1g(device, bayer, xtrans, card) -> tuple[dict, dict, dict]:
 # develop kernel; B its floor, beside the library call that computes it.
 LADDER_ROWS = {"develop_variants": "full_A_u16_u8", "develop_variants3": "noop_B_u16_u8"}
 LADDER_TILE2 = (32, 768)      # a second TPU tile dma_floor form A is held at
+LADDER_ODD = (6001, 4001)     # (width, height): rows off 16 bytes, the vector-load route
 
 
-def phase1f(device, size, card) -> tuple[dict, dict, dict]:
+def _hold_rung(r, tile, got, want, errors) -> None:
+    """Print a rung's comparison with its plain version and raise unless u8
+    is within 1 LSB on < 2% of values and float32 bit-equal."""
+    maxd, frac = kv.compare_variant(got, want)
+    bits = torch.equal(got, want)
+    ok = bits if r.output == "f32" else maxd <= kdev.MAX_LSB and frac < kdev.MAX_FLIP_FRACTION
+    print(f"    {r.name}{f' tile {tile}' if tile else ''}: max |diff| {maxd}, differing "
+          f"{frac:.6f}{', bit-equal' if bits else ''}")
+    if not ok:
+        raise AssertionError(f"{r.name}: max |diff| {maxd}, differing {frac}, bit-equal {bits} "
+                             f"against the plain version")
+    entry = "develop_variants" if r.form == "A" else "develop_variants3"
+    errors[entry] = max(errors[entry], maxd)
+
+
+def phase1f(device, size, card, odd=LADDER_ODD) -> tuple[dict, dict, dict]:
     """The ladder's path: every rung of both experiments' kernels
     (tkv.rungs(): each variant and form, u16 and f32 planes, u8 and f32
     outputs) once through kernels.variants.run_variant on a `size` synthetic
     Bayer plane, the counts set to 0 just before and read just after (one
     launch per rung of each form, no other kernel). Each output is then held
     to its plain version on the card: u8 max |diff| <= 1 LSB on < 2% of
-    values, f32 max |diff| <= kv.MAX_F32_DIFF; dma_floor form A also at a
-    second TPU tile. Then the ladder is timed beside the develop kernel on
-    the same plan (tkv.time_ladder: device ms back to back over 3 cold
-    planes, plain versions from idle, noop form B beside Tensor.zero_).
-    Returns ({entry: launches}, {entry: max |diff|}, {entry: timing}) for
-    the kernels line's two entries (LADDER_ROWS)."""
+    values, f32 bit for bit; dma_floor form A also at a second TPU tile.
+    Then every rung again on an `odd` plane (width and height odd: the
+    vector-load route), held the same way, with the route launches checked.
+    Then the ladder is timed beside the develop kernel on the same plan
+    (tkv.time_ladder: device ms back to back over 3 cold planes, plain
+    versions from idle, noop beside one PyTorch call) and printed beside the
+    previous design's times and the bounds. Returns ({entry: launches}, {entry: max
+    |diff|}, {entry: timing}) for the kernels line's two entries
+    (LADDER_ROWS)."""
     plan, scal, planes = tkv.ladder_inputs(size, device, tdk.INPUTS)
     rungs = tkv.rungs()
     _reset_counts()
     outs = [tkv.run_rung(r, planes[r.input][0], scal) for r in rungs]
     _sync(device)
     counts = _counts()
+    routes = dict(kv.ROUTE_LAUNCHES)
     want = {k: 0 for k in counts}
     for r in rungs:
         want["develop_variants" if r.form == "A" else "develop_variants3"] += 1
-    print(f"  {len(rungs)} rungs at {size[0]}x{size[1]}: launches {counts}")
+    print(f"  {len(rungs)} rungs at {size[0]}x{size[1]}: launches {counts}, load routes {routes}")
     if device.type == "cuda" and counts != want:
         raise AssertionError(f"ladder: launches {counts}, want {want}")
     errors = {"develop_variants": 0.0, "develop_variants3": 0.0}
@@ -2049,25 +2075,44 @@ def phase1f(device, size, card) -> tuple[dict, dict, dict]:
     for r, tile, got in checks:
         args = dict(height=size[1], width=size[0], variant=r.variant, form=r.form,
                     out_dtype=r.out_dtype, tile=tile or r.tile)
-        want_out = kv.variant_plain(planes[r.input][0], scal, **args)
-        maxd, frac = kv.compare_variant(got, want_out)
-        bits = torch.equal(got, want_out)
-        ok = (maxd <= kv.MAX_F32_DIFF if r.output == "f32"
-              else maxd <= kdev.MAX_LSB and frac < kdev.MAX_FLIP_FRACTION)
-        print(f"  {r.name}{f' tile {tile}' if tile else ''}: max |diff| {maxd}, differing "
-              f"{frac:.6f}{', bit-equal' if bits else ''}")
-        if not ok:
-            raise AssertionError(f"{r.name}: max |diff| {maxd}, differing {frac} against the "
-                                 f"plain version")
-        entry = "develop_variants" if r.form == "A" else "develop_variants3"
-        errors[entry] = max(errors[entry], maxd)
-        del want_out
+        _hold_rung(r, tile, got, kv.variant_plain(planes[r.input][0], scal, **args), errors)
     del outs, checks
     if device.type == "cuda":
         torch.cuda.empty_cache()
+
+    # The vector-load route: rows that do not start on 16 bytes.
+    _, _, odd_planes = tkv.ladder_inputs(odd, device)
+    before = dict(kv.ROUTE_LAUNCHES)
+    print(f"  every rung at {odd[0]}x{odd[1]}:")
+    for r in rungs:
+        p = odd_planes[r.input][0]
+        got = tkv.run_rung(r, p, scal)
+        plan_r = tkv.rung_plan(r, p)
+        print(f"    {r.name}: route {plan_r['route']}, tile rows {plan_r['tile_rows']}")
+        _hold_rung(r, None, got, tkv.plain_rung(r, p, scal), errors)
+    staged = sum(r.variant != "noop" for r in rungs)
+    vector = kv.ROUTE_LAUNCHES["vector"] - before["vector"]
+    print(f"  load routes at {odd[0]}x{odd[1]}: vector {vector} of {staged} staged rungs")
+    if device.type == "cuda" and (vector != staged or routes["vector"] != 0):
+        raise AssertionError(f"ladder routes: {vector} vector launches at {odd}, want {staged}; "
+                             f"{routes} at {size}, want no vector launch")
+    del odd_planes
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
     print(f"  the ladder timed beside the develop kernel (on {card}):")
     rows = {row["exp"]: row for row in tkv.time_ladder(
         plan, scal, planes, device, card, emit=lambda line: print(f"    {line}"))}
+    print(f"  rung: device ms (previous design's), bound, library call, route, tile rows "
+          f"(on {card})")
+    for r in rungs:
+        row = rows[r.name]
+        lib = "" if row["library_ms"] is None else f", library {row['library_ms']:.4f}"
+        print(f"    {r.name}: {row['ms']:.4f} ({tkv.PREVIOUS_MS[r.name]:.4f}), bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}{lib}, route {row['route']}, tile rows "
+              f"{row['tile_rows']}")
+    for line in tkv.gap_lines(list(rows.values())):
+        print(f"  gap: {line} (on {card})")
     times = {}
     for entry, exp in LADDER_ROWS.items():
         row = rows[exp]

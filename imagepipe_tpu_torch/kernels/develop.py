@@ -192,7 +192,7 @@ def _library():
         lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, i,
                                       p, p, p]
         lib.develop_variant_launch.restype = i
-        lib.develop_variant_launch.argtypes = [p, i, i, i, p, i, i, i, i, i, p, p]
+        lib.develop_variant_launch.argtypes = [p, i, i, i, p, i, i, i, i, i, p, i, i, p]
         _lib = lib
     return _lib
 

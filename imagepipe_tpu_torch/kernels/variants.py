@@ -31,8 +31,17 @@ the calibration as the experiments pack it (`variant_scal`).
   plane's device so that CUDA divides and does not multiply by a
   reciprocal. A plane on a CUDA device launches the kernel, or the wrapper
   raises; nothing falls back.
-* `VARIANT_LAUNCHES` counts the launches by form: "A" and "B". The library
-  is built and bound by kernels/develop.py, with the other kernels.
+* `VARIANT_LAUNCHES` counts the launches by form: "A" and "B";
+  `ROUTE_LAUNCHES` the launches that load the plane by their load route.
+  The library is built and bound by kernels/develop.py, with the other
+  kernels.
+* `variant_plan` is the launch's plan, chosen from the shape before it: a
+  block a tile of 128 columns x `tile_rows` rows (`TILE_ROWS`, or
+  `STREAM_TILE_ROWS` for the rungs that only stream), a thread
+  storing 16 bytes a plane at a time (16 u8 or 4 float32 pixels along a
+  row); the plane's rows load by TMA where they start on 16 bytes (route
+  "tma"), else by vector loads ("vector"). noop loads nothing and fills
+  the output [3, height, width] as one flat array (route None).
 
 Numerics: nvcc contracts a + b*c into FMA and the plain version does not,
 so u8 outputs are held to the cross-path contract (max |diff| <= 1 LSB,
@@ -50,15 +59,32 @@ from ..color import _div
 from . import develop as kdev
 
 __all__ = ["run_variant", "variant_plain", "variant_scal", "check_variant", "compare_variant",
-           "VARIANTS", "FORMS", "VARIANT_LAUNCHES", "MAX_F32_DIFF"]
+           "variant_route", "variant_plan", "VARIANTS", "FORMS", "ROUTES", "TILE_COLS",
+           "TILE_ROWS", "STREAM_TILE_ROWS", "THREADS", "VARIANT_LAUNCHES", "ROUTE_LAUNCHES",
+           "MAX_F32_DIFF"]
 
 # The rungs, in the order the kernel numbers them.
 VARIANTS = ("noop", "dma_floor", "levels", "demosaic", "color_only", "full")
 FORMS = ("A", "B")
 
 # Kernel launches by `run_variant` since import (or since a caller reset
-# them), by form.
+# them), by form, and those that load the plane by load route.
 VARIANT_LAUNCHES = {"A": 0, "B": 0}
+ROUTES = ("tma", "vector")
+ROUTE_LAUNCHES = {"tma": 0, "vector": 0}
+
+# The launch plan: an output tile is TILE_COLS columns by `tile_rows` rows
+# (at most 254: the TMA box holds the rows and a one-row halo above and
+# below); at 32 rows a block's 256 threads store one 16-byte u8 vector each
+# a plane, at 8 one float32 vector. The heights are the fastest of 8, 16, 32
+# and 64 at 24 MP on the H100 (scripts/torch_kernel_variants.py
+# --tile-rows): 32 by default; the rungs that only stream (dma_floor form
+# B, levels) 16 to u8 and 8 to float32.
+TILE_COLS = 128
+TILE_ROWS = 32
+STREAM_TILE_ROWS = {torch.uint8: 16, torch.float32: 8}
+THREADS = 256                   # a block's threads: each stores one vector at a time
+_MAX_TILE_ROWS = 254
 
 # float32 outputs: the most |kernel - plain| may be, on the 0-255 scale.
 MAX_F32_DIFF = 1e-3
@@ -106,6 +132,38 @@ def check_variant(plane: torch.Tensor, scal: torch.Tensor, height: int, width: i
         raise ValueError(f"{height} x {width}: the plane is empty")
     if tuple(scal.shape) != (8, 16) or scal.dtype != torch.float32:
         raise ValueError(f"scal {tuple(scal.shape)} {scal.dtype}, want [8, 16] float32")
+
+
+def variant_route(width: int, plane_dtype, data_ptr: int = 0) -> str:
+    """The load route of a [., width] plane of `plane_dtype` (u16 or
+    float32) whose data starts at `data_ptr`: "tma" where every row starts
+    on 16 bytes (width * itemsize and the pointer multiples of 16), which
+    the TMA tensor map needs, else "vector"."""
+    return "tma" if (width * plane_dtype.itemsize) % 16 == 0 and data_ptr % 16 == 0 else "vector"
+
+
+def variant_plan(height: int, width: int, variant: str, form: str, plane_dtype, out_dtype,
+                 data_ptr: int = 0, tile_rows: int | None = None) -> dict:
+    """The launch of one rung on a [height, width] plane: `route`
+    (`variant_route`; None for noop), `tile_rows` (TILE_ROWS or
+    STREAM_TILE_ROWS unless given), `tiles` (blocks along x and y), `vec`
+    (pixels a thread stores per plane at a time: 16 bytes of the output
+    type), `shape` (height, width). noop's tiles are 256 vectors of the
+    flat output (tile_rows None)."""
+    vec = 16 // out_dtype.itemsize
+    if variant == "noop":
+        return {"route": None, "tile_rows": None,
+                "tiles": (-(-3 * height * width // (vec * THREADS)), 1), "vec": vec,
+                "shape": (height, width)}
+    if tile_rows is None:
+        streams = variant == "levels" or (variant, form) == ("dma_floor", "B")
+        tile_rows = STREAM_TILE_ROWS[out_dtype] if streams else TILE_ROWS
+    rows = int(tile_rows)
+    if not 1 <= rows <= _MAX_TILE_ROWS:
+        raise ValueError(f"tile_rows {rows}, want 1..{_MAX_TILE_ROWS}")
+    return {"route": variant_route(width, plane_dtype, data_ptr), "tile_rows": rows,
+            "tiles": (-(-width // TILE_COLS), -(-height // rows)), "vec": vec,
+            "shape": (height, width)}
 
 
 def _scal(scal, device) -> torch.Tensor:
@@ -268,10 +326,12 @@ def compare_variant(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float
 
 
 def run_variant(plane: torch.Tensor, scal, *, height: int, width: int, variant: str,
-                form: str, out_dtype=torch.uint8, tile=None) -> torch.Tensor:
+                form: str, out_dtype=torch.uint8, tile=None,
+                tile_rows: int | None = None) -> torch.Tensor:
     """One rung of the ladder on the sensor plane [height, width] (u16 or
     float32) with the calibration `scal` [8, 16] -> [3, height, width] u8 or
-    float32: one launch of csrc/develop_variants.cu on CUDA, the plain
+    float32: one launch of csrc/develop_variants.cu on CUDA under
+    `variant_plan` (`tile_rows` overrides its tile height), the plain
     version on the CPU."""
     if plane.device.type == "cpu":
         return variant_plain(plane, scal, height=height, width=width, variant=variant,
@@ -280,6 +340,8 @@ def run_variant(plane: torch.Tensor, scal, *, height: int, width: int, variant: 
         raise ValueError(f"variant kernel: unsupported device {plane.device}")
     scal = _scal(scal, plane.device)
     check_variant(plane, scal, height, width, variant, form, out_dtype, tile)
+    plan = variant_plan(height, width, variant, form, plane.dtype, out_dtype, plane.data_ptr(),
+                        tile_rows)
     out = torch.empty((3, height, width), dtype=out_dtype, device=plane.device)
     tile_h, tile_w = (int(t) for t in tile) if tile is not None else (0, 0)
     lib = kdev._library()
@@ -288,8 +350,11 @@ def run_variant(plane: torch.Tensor, scal, *, height: int, width: int, variant: 
         rc = lib.develop_variant_launch(
             plane.data_ptr(), int(plane.dtype == torch.float32), height, width,
             scal.data_ptr(), VARIANTS.index(variant), int(form == "A"), tile_h,
-            tile_w, int(out_dtype == torch.float32), out.data_ptr(), stream)
+            tile_w, int(out_dtype == torch.float32), out.data_ptr(), plan["tile_rows"] or 1,
+            ROUTES.index(plan["route"] or "tma"), stream)
     if rc != 0:
         raise RuntimeError(f"variant kernel launch failed: cudaError {rc}")
     VARIANT_LAUNCHES[form] += 1
+    if plan["route"] is not None:
+        ROUTE_LAUNCHES[plan["route"]] += 1
     return out

@@ -179,10 +179,10 @@ OPS_SUFFIX_LUT = dict(OPS_SUFFIX, to_lab=72, gamma=36)
 LUT_ENTRIES = 8193
 
 # Opcodes counted in each kernel's SASS: special-function unit calls
-# (MUFU.RCP of a division, MUFU.LG2/EX2 of logf/expf), the division's
-# range check, branches, global and shared memory accesses, and the local
+# (MUFU.RCP of a division, MUFU.LG2/EX2 of logf/expf), fused multiply-adds,
+# the division's range check, branches, global and shared memory accesses, and the local
 # memory accesses of spilled registers.
-SASS_OPCODES = ("MUFU", "FCHK", "BRA", "LDG", "STG", "LDS", "STS", "LDL", "STL", "BAR")
+SASS_OPCODES = ("MUFU", "FFMA", "FCHK", "BRA", "LDG", "STG", "LDS", "STS", "LDL", "STL", "BAR")
 
 
 def card() -> str:
@@ -613,16 +613,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found")
 
 
-def ptxas_report(csrc: Path, build_dir: Path) -> dict:
+PTXAS_SOURCES = ("develop.cu", "develop_scaled.cu", "rotate.cu", "suffix.cu",
+                 "develop_variants.cu")
+
+
+def ptxas_report(csrc: Path, build_dir: Path, sources=PTXAS_SOURCES) -> dict:
     """{kernel: 'N registers, ... bytes spill ..., M bytes smem'} from
-    `nvcc -Xptxas -v` on each kernel source (the develop kernels', rotate.cu,
-    suffix.cu and develop_variants.cu), compiled with the package's own flags (one nvcc each, in
-    parallel)."""
+    `nvcc -Xptxas -v` on each kernel source of `sources` (by default the
+    develop kernels', rotate.cu, suffix.cu and develop_variants.cu),
+    compiled with the package's own flags (one nvcc each, in parallel)."""
     flags = [f for f in kdev._NVCC_FLAGS]
     build_dir.mkdir(exist_ok=True)
     procs = []
-    for name in ("develop.cu", "develop_scaled.cu", "rotate.cu", "suffix.cu",
-                 "develop_variants.cu"):
+    for name in sources:
         if not (csrc / name).exists():
             continue
         obj = build_dir / f"ptxas_{name}.{os.getpid()}.o"

@@ -248,25 +248,31 @@ def test_wrapper_refuses_other_devices_and_plane_types():
 
 def test_timing_script_runs_on_the_cpu():
     """scripts/torch_kernel_variants.py end to end through the plain
-    versions at a tiny size: one JSON line per rung, then the develop row,
-    then the summary line, each row with the keys the card's run prints."""
+    versions at a tiny size: one JSON line per rung, then the develop rows
+    (cut after the demosaic, whole), the u16 -> u8 demosaic and full rungs
+    beside them ("gap" lines), then the summary line, each row with the
+    keys the card's run prints."""
     proc = subprocess.run([sys.executable, str(REPO / "scripts" / "torch_kernel_variants.py"),
                            "--device", "cpu", "--size", "256x64"],
                           capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
     assert lines[0] == "cpu"
-    rows = [json.loads(line) for line in lines[1:-1]]
+    rows = [json.loads(line) for line in lines[1:-1] if not line.startswith("  gap: ")]
+    gaps = [line for line in lines[1:-1] if line.startswith("  gap: ")]
+    assert [g.split()[1] for g in gaps] == [
+        f"{v}_{f}_u16_u8" for f in kv.FORMS for v in ("demosaic", "full")]
     summary = json.loads(lines[-1])
     assert summary["rows"] == rows and summary["size"] == [256, 64]
     assert [r["exp"] for r in rows] == [
-        f"{v}_{f}_{d}_{o}" for f, v, d, o in _rungs()] + ["develop"]
+        f"{v}_{f}_{d}_{o}" for f, v, d, o in _rungs()] + ["develop_cut1", "develop"]
     keys = {"exp", "ms", "min_ms", "runs", "host_bound", "mp_s", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "clock", "card"}
+            "bound_ms", "bound_by", "route", "tile_rows", "clock", "card"}
     for r in rows:
         assert set(r) == keys and r["clock"] == "host" and r["bound_ms"] > 0
         assert r["bound_by"] in ("bytes", "operations")
-        assert (r["library_ms"] is not None) == r["exp"].startswith("noop_B")
+        assert (r["library_ms"] is not None) == r["exp"].startswith("noop")
+        assert (r["route"] is None) == r["exp"].startswith(("develop", "noop"))
 
 
 # -- on the card ----------------------------------------------------------
@@ -298,6 +304,20 @@ def test_kernel_matches_plain_on_card(card, size, form, variant, dt, out_dt):
     _assert_contract(got, want, out_dt)
     if out_dt == "f32":
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [(1, 1), (7, 5), (32, 768), (96, 384), (500, 1000)])
+@pytest.mark.parametrize("size", [BASE, (67, 301)])
+def test_dma_floor_form_a_tiles_on_card(card, size, tile):
+    """dma_floor form A's per-block flag table at TPU tiles from 1 x 1 (a
+    tile per pixel: the most a block overlaps) to wider and taller than the
+    frame, on the TMA and the vector-load route."""
+    plane = torch.from_numpy(_plane(*BASE, "u16")[:size[0], :size[1]].copy()).to(card)
+    scal = _frame(*BASE)[1]
+    args = dict(height=size[0], width=size[1], variant="dma_floor", form="A", tile=tile)
+    got = kv.run_variant(plane, scal, **args)
+    assert torch.equal(got, kv.variant_plain(plane, scal, **args))
 
 
 if __name__ == "__main__":
