@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import color as cc
+from . import profiling
 from .raw import CFA
 from .kernels.demosaic_full import stencil_demosaic_planes
 from .ops.colorspaces import normalize_wbs
@@ -487,5 +488,9 @@ def develop_batch_perimage_sp(plans, planes_shards, devices) -> torch.Tensor:
 
 
 def planar_to_hwc(out: torch.Tensor) -> np.ndarray:
-    """[3, H, W] tensor -> host [H, W, 3] numpy view."""
-    return np.moveaxis(out.cpu().numpy(), -3, -1)
+    """[3, H, W] tensor -> host [H, W, 3] numpy view. The span `output.d2h`
+    is the `.cpu()`: on CUDA it waits for the work queued before it, then
+    copies."""
+    with profiling.span("output.d2h"):
+        host = out.cpu()
+    return np.moveaxis(host.numpy(), -3, -1)

@@ -49,13 +49,13 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import os
-import time
 from collections import defaultdict
 
 import numpy as np
 import torch
 
 from .. import color as cc
+from .. import profiling
 from ..decode import decode_file
 from ..engine import (develop_batch_perimage, develop_batch_perimage_sp, make_develop_plan,
                       normalize_plane_np, stage_perimage_sp)
@@ -134,10 +134,13 @@ def shard_batch(rows, planes) -> list[list[torch.Tensor]]:
             for r, row in enumerate(rows)]
 
 
-def _timed_decode(path):
-    t = time.perf_counter()
-    src = decode_file(path)
-    return src, time.perf_counter() - t
+def _timed_decode(path, request_id):
+    """(source, seconds) of one file's decode on a pool thread: the span
+    `batch.decode` of the pass `request_id`."""
+    seconds = {}
+    with profiling.span("batch.decode", into=seconds, key="decode", request_id=request_id):
+        src = decode_file(path)
+    return src, seconds["decode"]
 
 
 class BatchEngine:
@@ -180,10 +183,13 @@ class BatchEngine:
         # 'auto' and 'kernel': the batched kernels for the plans they take,
         # the eager engine for the rest; 'eager': the eager engine only.
         self.executor = executor
-        # Host seconds by stage, summed over calls: decode (in the pool's
-        # threads), plan, stage (into pinned buffers), dispatch (enqueue of
-        # copies and launches), wait (for the card, in _collect), scatter
-        # (out of pinned buffers into the results).
+        # Host seconds by stage (the sums of the `batch.<stage>` spans)
+        # over calls: decode (in the pool's threads), submit (the calling
+        # thread starting the pool and handing it the files), decode_wait
+        # (the calling thread blocked on the pool's next file), plan, stage
+        # (into pinned buffers), dispatch (enqueue of copies and launches),
+        # wait (for the card, in _collect), scatter (out of pinned buffers
+        # into the results).
         self.timings = collections.Counter()
         # Test/observability hook: when set to a list, (event, payload)
         # tuples are appended on every decode, dispatch, collect and error.
@@ -265,22 +271,21 @@ class BatchEngine:
         self._next_row += 1
         device = row[0]
         plans = [plan for _, _, plan in chunk]
-        t0 = time.perf_counter()
         if device.type != "cuda":
-            staged = self._stage(chunk, pin=False)
-            t1 = time.perf_counter()
-            out, done = self._develop(plans, staged, row), None
+            with profiling.span("batch.stage", into=self.timings, key="stage"):
+                staged = self._stage(chunk, pin=False)
+            with profiling.span("batch.dispatch", into=self.timings, key="dispatch"):
+                out, done = self._develop(plans, staged, row), None
         else:
             with torch.cuda.device(device):
-                staged = self._stage(chunk, pin=True)
-                t1 = time.perf_counter()
-                dev_out = self._develop(plans, staged, row)
-                out = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
-                out.copy_(dev_out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-        self.timings["stage"] += t1 - t0
-        self.timings["dispatch"] += time.perf_counter() - t1
+                with profiling.span("batch.stage", into=self.timings, key="stage"):
+                    staged = self._stage(chunk, pin=True)
+                with profiling.span("batch.dispatch", into=self.timings, key="dispatch"):
+                    dev_out = self._develop(plans, staged, row)
+                    out = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
+                    out.copy_(dev_out, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
         self._note("dispatch", len(chunk))
         return out, done
 
@@ -292,39 +297,36 @@ class BatchEngine:
         transpose, several times slower than the plain copy."""
         while len(inflight) > keep:
             chunk, (out, done) = inflight.pop(0)
-            t0 = time.perf_counter()
-            if done is not None:
-                done.synchronize()
-            t1 = time.perf_counter()
-            planar = out.numpy()
-            for (idx, _, _), img in zip(chunk, planar):
-                results[idx] = np.moveaxis(img.copy(), 0, -1)
-            self.timings["wait"] += t1 - t0
-            self.timings["scatter"] += time.perf_counter() - t1
+            with profiling.span("batch.wait", into=self.timings, key="wait"):
+                if done is not None:
+                    done.synchronize()
+            with profiling.span("batch.scatter", into=self.timings, key="scatter"):
+                planar = out.numpy()
+                for (idx, _, _), img in zip(chunk, planar):
+                    results[idx] = np.moveaxis(img.copy(), 0, -1)
             self._note("collected", len(chunk))
 
     def _plan_timed(self, src):
-        t = time.perf_counter()
-        plan = self._plan_for(src)
-        self.timings["plan"] += time.perf_counter() - t
-        return plan
+        with profiling.span("batch.plan", into=self.timings, key="plan"):
+            return self._plan_for(src)
 
     def develop_sources(self, sources: list[ImageSource]):
         """Develop a list of RAW sources; returns [H', W', 3] numpy outputs
         in input order. Sources are bucketed by shape class."""
         results: list = [None] * len(sources)
         buckets: dict = defaultdict(list)
-        for idx, src in enumerate(sources):
-            plan = self._plan_timed(src)
-            buckets[self._bucket_key(src, plan)].append((idx, src, plan))
+        with profiling.request("batch.develop_sources"):
+            for idx, src in enumerate(sources):
+                plan = self._plan_timed(src)
+                buckets[self._bucket_key(src, plan)].append((idx, src, plan))
 
-        inflight = []
-        for entries in buckets.values():
-            for start in range(0, len(entries), self.max_batch):
-                chunk = entries[start:start + self.max_batch]
-                inflight.append((chunk, self._dispatch_chunk(chunk)))
-                self._collect(inflight, results, keep=self.inflight_batches)
-        self._collect(inflight, results)
+            inflight = []
+            for entries in buckets.values():
+                for start in range(0, len(entries), self.max_batch):
+                    chunk = entries[start:start + self.max_batch]
+                    inflight.append((chunk, self._dispatch_chunk(chunk)))
+                    self._collect(inflight, results, keep=self.inflight_batches)
+            self._collect(inflight, results)
         return results
 
     def develop_files(self, paths: list[str], errors: str = "raise"):
@@ -339,12 +341,25 @@ class BatchEngine:
         completes (one corrupt file must not discard a directory's work)."""
         if errors not in ("raise", "skip"):
             raise ValueError(f"errors {errors!r}: 'raise' or 'skip'")
+        with profiling.request("batch.develop_files"):
+            return self._develop_files(paths, errors)
+
+    def _develop_files(self, paths, errors):
+        """`develop_files` inside its request span, so that the span also
+        holds the release of the pass's decoded files."""
         results: list = [None] * len(paths)
         buckets: dict = defaultdict(list)
         inflight = []
+        rid = profiling.current_request()
         with cf.ThreadPoolExecutor(self.decode_workers) as pool:
-            futs = {pool.submit(_timed_decode, p): i for i, p in enumerate(paths)}
-            for fut in cf.as_completed(futs):
+            with profiling.span("batch.submit", into=self.timings, key="submit"):
+                futs = {pool.submit(_timed_decode, p, rid): i for i, p in enumerate(paths)}
+            done = cf.as_completed(futs)
+            while True:
+                with profiling.span("batch.decode_wait", into=self.timings, key="decode_wait"):
+                    fut = next(done, None)
+                if fut is None:
+                    break
                 idx = futs[fut]
                 try:
                     src, seconds = fut.result()

@@ -37,14 +37,12 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
-from contextlib import contextmanager
 
 import numpy as np
 import torch
 import yaml
 
-from . import hasher
+from . import hasher, profiling
 from .buffer import OpBuffer
 from .cache import MultiCache
 from .color import output8bit, output16bit
@@ -88,14 +86,6 @@ def default_device() -> torch.device:
         raise RuntimeError("imagepipe_tpu_torch: no CUDA device; pass device='cpu' "
                            "to develop on the CPU")
     return torch.device("cuda", 0)
-
-
-@contextmanager
-def _timing(name: str):
-    """Per-stage host wall timing at INFO level (pipeline.rs:68-80)."""
-    start = time.perf_counter()
-    yield
-    log.info("timing: %7.1f ms for |%s", (time.perf_counter() - start) * 1000.0, name)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -207,10 +197,15 @@ class Pipeline:
         self.device = torch.device(default_device() if device is None else device)
         self.globals.device = self.device
         self._fused_plan = None
-        # Host ms of each stage of the last staged run, by op name; with the
-        # logger at DEBUG each stage ends in a device synchronize, so they
-        # include its device time.
-        self.stage_ms: dict[str, float] = {}
+        self._stage_s: dict[str, float] = {}
+
+    @property
+    def stage_ms(self) -> dict[str, float]:
+        """Host ms of each stage of the last staged run (its `stage.<name>`
+        span), by op name, a fused segment's names joined by '+'; with the
+        logger at DEBUG each stage ends in a device synchronize, so they
+        include its device time."""
+        return {k: s * 1e3 for k, s in self._stage_s.items()}
 
     # -- construction ------------------------------------------------------
 
@@ -221,9 +216,7 @@ class Pipeline:
     @staticmethod
     def new_from_file(path, device=None) -> "Pipeline":
         device = default_device() if device is None else device
-        with _timing("total new_from_file()"):
-            img = decode_file(path)
-        return Pipeline.new_from_source(img, device)
+        return Pipeline.new_from_source(decode_file(path), device)
 
     @staticmethod
     def new_from_source(img: ImageSource, device=None) -> "Pipeline":
@@ -261,7 +254,7 @@ class Pipeline:
         """`run`, and with `final_quant` 8 or 16 the output's quantize in
         the last fused segment when that segment ends the chain. Returns
         (final OpBuffer, quantized [3, H, W] tensor or None)."""
-        with _timing("  total pipeline"):
+        with profiling.span("pipeline.plan"):
             ops = self.ops.all_ops()
 
             # Phase A: reset op memo state.
@@ -299,9 +292,11 @@ class Pipeline:
                     if hit is not None:
                         bufin = hit
                         startpos = i + 1
+        profiling.count("stage_cache.stages", len(ops))
+        profiling.count("stage_cache.reused", startpos)
 
-            # Phase D: run the dirty suffix.
-            return self._execute_suffix(ops, startpos, bufin, ophashes, cache, final_quant)
+        # Phase D: run the dirty suffix.
+        return self._execute_suffix(ops, startpos, bufin, ophashes, cache, final_quant)
 
     def _chains(self, ops, i, buf) -> list:
         """The device_chain of ops[i:] up to the first op that declines,
@@ -324,35 +319,34 @@ class Pipeline:
         that fuses (`ksuffix.fuses`: the CPU and CUDA), in the numerics its
         ops resolve, the 'lut' override included. A declining op (an active
         rotatecrop) runs its `run`, and fusion starts again after it.
-        Records the host ms of each stage or segment (keyed by the
-        segment's op names joined by '+'). Returns (final OpBuffer,
-        quantized tensor or None)."""
-        self.stage_ms = {}
+        Each stage or segment is the span `stage.<name>` (the segment's op
+        names joined by '+'), its host seconds in `stage_ms`. Returns (final
+        OpBuffer, quantized tensor or None)."""
+        self._stage_s = {}
         sync = log.isEnabledFor(logging.DEBUG)
         quant = None
         i, n = startpos, len(ops)
         while i < n:
-            start = time.perf_counter()
             fuse = FUSE_SUFFIX and ksuffix.fuses(bufin.data.device)
             chains = self._chains(ops, i, bufin) if fuse else []
             j = i + len(chains)
             real = sum(c[1] is not None for c in chains)
-            if real >= 2 or (j == n and final_quant and real >= 1):
-                bufin, quant = self._dispatch_fused(ops, i, chains, bufin, ophashes, cache,
-                                                    final_quant if j == n else None)
-                name = "+".join(op.name() for op in ops[i:j])
-                i = j
-            else:
-                op = ops[i]
-                bufin = op.run(self.globals, bufin)
-                if cache is not None:
-                    cache.put_arc(ophashes[i], bufin, bufin.nbytes())
-                name = op.name()
-                i += 1
-            if sync:
-                _synchronize(self.device)
-            ms = self.stage_ms[name] = (time.perf_counter() - start) * 1e3
-            log.info("timing: %7.1f ms for |    %s", ms, name)
+            fused = real >= 2 or (j == n and final_quant and real >= 1)
+            name = "+".join(op.name() for op in ops[i:j]) if fused else ops[i].name()
+            with profiling.span(f"stage.{name}", into=self._stage_s, key=name,
+                                device=self.device):
+                if fused:
+                    bufin, quant = self._dispatch_fused(ops, i, chains, bufin, ophashes, cache,
+                                                        final_quant if j == n else None)
+                    i = j
+                else:
+                    op = ops[i]
+                    bufin = op.run(self.globals, bufin)
+                    if cache is not None:
+                        cache.put_arc(ophashes[i], bufin, bufin.nbytes())
+                    i += 1
+                if sync:
+                    _synchronize(self.device)
         return bufin, quant
 
     def _dispatch_fused(self, ops, startpos, chains, bufin, ophashes, cache, final_quant):
@@ -396,16 +390,16 @@ class Pipeline:
     def _fused_plan_cached(self, out_bits: int):
         """make_develop_plan memoized on the (settings, ops) state, so a
         render loop keeps its device tables and uploads nothing twice."""
-        h = BufHasher()
-        self.globals.settings.hash(h)
-        for op in self.ops.all_ops():
-            op.hash(h)
-        key = (out_bits, self.globals.settings.linear, h.result())
-        if self._fused_plan is not None and self._fused_plan[0] == key:
+        with profiling.span("fused.plan"):
+            h = BufHasher()
+            self.globals.settings.hash(h)
+            for op in self.ops.all_ops():
+                op.hash(h)
+            key = (out_bits, self.globals.settings.linear, h.result())
+            if self._fused_plan is None or self._fused_plan[0] != key:
+                self._fused_plan = (key, make_develop_plan(self, out_bits=out_bits,
+                                                           device=self.device))
             return self._fused_plan[1]
-        plan = make_develop_plan(self, out_bits=out_bits, device=self.device)
-        self._fused_plan = (key, plan)
-        return plan
 
     def _sensor_plane(self) -> torch.Tensor:
         """The RAW's sensor data on this pipeline's device, uploaded once
@@ -415,15 +409,15 @@ class Pipeline:
     def _run_fused(self, out_bits: int) -> np.ndarray:
         plan = self._fused_plan_cached(out_bits)
         plane = self._sensor_plane()
-        if plan.device.type == "cuda" and plan.numerics == "direct":
-            if kdev.kernel_supported(plan):
-                with _timing("  fused develop (CUDA kernel)"):
-                    return planar_to_hwc(kdev.develop(plan, plane))
-            if kdev_scaled.scaled_supported(plan):
-                with _timing("  fused develop (CUDA scaled-demosaic kernel)"):
-                    return planar_to_hwc(kdev_scaled.develop_scaled(plan, plane))
-        with _timing("  fused develop (eager engine)"):
-            return planar_to_hwc(develop_fused(plan, plane))
+        direct = plan.device.type == "cuda" and plan.numerics == "direct"
+        with profiling.span("fused.develop"):
+            if direct and kdev.kernel_supported(plan):
+                out = kdev.develop(plan, plane)
+            elif direct and kdev_scaled.scaled_supported(plan):
+                out = kdev_scaled.develop_scaled(plan, plane)
+            else:
+                out = develop_fused(plan, plane)
+        return planar_to_hwc(out)
 
     def _raster_fastpath(self, bits: int) -> np.ndarray:
         other = self.globals.image.other
@@ -434,9 +428,8 @@ class Pipeline:
         if (nwidth, nheight) == (width, height):
             return rgb
         scale = scale_down_srgb if bits == 8 else scale_down_srgb16
-        with _timing("  raster downscale"):
-            src = torch.from_numpy(np.require(rgb, requirements=["C", "W"])).to(self.device)
-            return scale(src, nwidth, nheight).cpu().numpy()
+        src = torch.from_numpy(np.require(rgb, requirements=["C", "W"])).to(self.device)
+        return scale(src, nwidth, nheight).cpu().numpy()
 
     def _output(self, bits: int, cache) -> np.ndarray:
         if self._fastpath_applicable():
@@ -446,17 +439,17 @@ class Pipeline:
         if cache is None and self._fused_applicable():
             return self._run_fused(bits)
         buffer, quant = self._run_impl(cache, final_quant=bits)
-        with _timing(f"  {bits} bit conversion"):
-            if quant is None:
+        if quant is None:
+            with profiling.span("pipeline.quantize"):
                 quant = output8bit(buffer.data) if bits == 8 else output16bit(buffer.data)
-            return planar_to_hwc(quant)
+        return planar_to_hwc(quant)
 
     def output_8bit(self, cache: MultiCache | None = None) -> SRGBImage:
-        with _timing("total output_8bit()"):
+        with profiling.request("pipeline.output_8bit"):
             data = self._output(8, cache)
         return SRGBImage(data.shape[1], data.shape[0], data)
 
     def output_16bit(self, cache: MultiCache | None = None) -> SRGBImage16:
-        with _timing("total output_16bit()"):
+        with profiling.request("pipeline.output_16bit"):
             data = self._output(16, cache)
         return SRGBImage16(data.shape[1], data.shape[0], data)

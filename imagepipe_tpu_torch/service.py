@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from . import profiling
 from .cache import MultiCache
 from .pipeline import Pipeline, default_device
 from .sources import ImageSource
@@ -139,13 +140,15 @@ class RenderService:
             self.sessions.pop(key, None)
 
     def render(self, key: str, max_size: int = 0, bits: int = 8):
-        with self._lock:
-            session = self.sessions[key]
-        return session.render(max_size=max_size, bits=bits)
+        with profiling.request("service.render"):
+            with self._lock:
+                session = self.sessions[key]
+            return session.render(max_size=max_size, bits=bits)
 
     def edit(self, key: str, patch: dict, max_size: int = 0, bits: int = 8):
-        with self._lock:
-            session = self.sessions[key]
-        with session._lock:
-            session.apply(patch)
-            return session.render(max_size=max_size, bits=bits)
+        with profiling.request("service.edit"):
+            with self._lock:
+                session = self.sessions[key]
+            with session._lock:
+                session.apply(patch)
+                return session.render(max_size=max_size, bits=bits)
