@@ -1484,7 +1484,7 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> tuple[dict, dict]:
     # The copies behind `scatter`, for one 8-bit 24 MP output (72 MB): from
     # pageable and from pinned host memory into fresh memory (as a result
     # array is) and into memory touched before, and from the card into
-    # fresh pageable memory.
+    # fresh pageable memory and (`planar_to_hwc`) into a pooled pinned block.
     out = np.full(3 * BAYER[0] * BAYER[1], 7, np.uint8)
     pinned = torch.empty(out.nbytes, dtype=torch.uint8, pin_memory=True)
     pinned.numpy()[:] = out
@@ -1494,7 +1494,8 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> tuple[dict, dict]:
               "pageable -> touched": lambda: np.copyto(touched, out),
               "pinned -> fresh": lambda: pinned.numpy().copy(),
               "pinned -> touched": lambda: np.copyto(touched, pinned.numpy()),
-              "card -> fresh pageable": lambda: on_card.cpu()}
+              "card -> fresh pageable": lambda: on_card.cpu(),
+              "card -> pooled pinned": lambda: planar_to_hwc(on_card.view(3, BAYER[0], -1))}
     host_ms = {name: [] for name in copies}
     for _ in range(3):
         for name, fn in copies.items():

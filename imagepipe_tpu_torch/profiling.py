@@ -17,7 +17,8 @@
   A span run for a request on another thread (a decode worker) is given
   that request's id (`request_id=`, from `current_request()`) and goes to
   the recorder only: a profiler records the thread that opened it.
-* `count(name, n)` adds to a counter while a profiler records.
+* `count(name, n)` adds to a counter while a profiler records;
+  `recording()` says whether one does.
 * `spans()`, `counters()` and `reset()` read and clear the recorder; it
   holds what was recorded since the last `reset()` or `trace()`, at most
   `MAX_SPANS` spans (the rest are counted under "profiling.dropped").
@@ -44,7 +45,7 @@ import time
 import torch
 
 __all__ = ["trace", "timed_sync", "device_fence", "span", "request", "current_request",
-           "count", "spans", "counters", "reset", "MAX_SPANS"]
+           "recording", "count", "spans", "counters", "reset", "MAX_SPANS"]
 
 MAX_SPANS = 1 << 18
 
@@ -211,6 +212,11 @@ def current_request() -> int | None:
     """The id of the request open in this context while a profiler
     records, for the spans another thread runs for it; else None."""
     return _request.get() if _recording() else None
+
+
+def recording() -> bool:
+    """True while a profiler records: spans and counters are kept."""
+    return _recording()
 
 
 def count(name: str, n: int = 1) -> None:
