@@ -7,7 +7,9 @@ concurrently on host threads, buckets by sensor shape, and develops each
 bucket through the batched CUDA kernels on every visible card, chunks
 round-robin over the cards (decode of batch N+1 overlaps develop of batch
 N; device memory bounded by the in-flight window). Writes JPEGs next to
-the inputs or into --out. `main(argv, device="cpu")` develops on the CPU.
+the inputs or into --out, a slice of SLICE files at a time, so that no more
+results are held than one slice's. `main(argv, device="cpu")` develops on
+the CPU.
 """
 
 import pathlib
@@ -22,6 +24,9 @@ from imagepipe_tpu_torch.parallel import BatchEngine  # noqa: E402
 
 RAW_EXTS = (".dng", ".nef", ".nrw", ".cr2", ".arw", ".sr2", ".raf",
             ".tif", ".tiff", ".pgm", ".synraw", ".synraw.npz")
+# Files developed per call: the results of one slice are written and dropped
+# before the next is developed.
+SLICE = 64
 
 
 def main(argv, device=None):
@@ -45,9 +50,16 @@ def main(argv, device=None):
         return 2
 
     engine = BatchEngine(devices=None if device is None else [device], max_batch=8)
+    written = set()
+    for start in range(0, len(files), SLICE):
+        _write_slice(engine, files[start:start + SLICE], out_dir, written)
+    return 0
+
+
+def _write_slice(engine, files, out_dir, written):
+    """Develop `files` in one call and write each result as a JPEG."""
     # errors='skip': one corrupt file must not discard the directory's work.
     outputs = engine.develop_files([str(p) for p in files], errors="skip")
-    written = set()
     for src, img in zip(files, outputs):
         if not isinstance(img, np.ndarray):   # BatchError slot
             print(f"{src}: SKIPPED ({img.error})", file=sys.stderr)
@@ -60,7 +72,6 @@ def main(argv, device=None):
         written.add(dst)
         Image.fromarray(img).save(str(dst), quality=90)
         print(f"{src} -> {dst} ({img.shape[1]}x{img.shape[0]})")
-    return 0
 
 
 if __name__ == "__main__":

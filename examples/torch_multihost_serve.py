@@ -18,7 +18,9 @@ world size, e.g. over a file on a shared filesystem:
     INIT_METHOD=file:///shared/fleet.rdv WORLD_SIZE=4 RANK=$I \\
         python examples/torch_multihost_serve.py /data/shoot out/
 
-(INIT_METHOD=tcp://<host0>:<port> works as well). `main(argv,
+(INIT_METHOD=tcp://<host0>:<port> works as well). Every process walks
+the global list in the same slices of SLICE files, one `develop_files` call
+each, and writes and drops a slice's results before the next. `main(argv,
 device="cpu")` develops on the CPU.
 """
 
@@ -34,6 +36,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from imagepipe_tpu_torch.parallel import (BatchError, MultiHostBatchEngine,  # noqa: E402
                                           partition_files)
+
+
+# Files of the global list per call: a rank holds at most its part of one
+# slice's results.
+SLICE = 256
 
 
 def main(argv, device=None) -> int:
@@ -61,12 +68,23 @@ def main(argv, device=None) -> int:
 
     eng = MultiHostBatchEngine(devices=None if device is None else [device],
                                maxwidth=2048, maxheight=2048)
-    mine = partition_files(paths, eng.rank, eng.world)
-    results = eng.develop_files(paths, errors="skip")
-
     os.makedirs(outdir, exist_ok=True)
+    ok = mine = 0
+    for start in range(0, len(paths), SLICE):
+        part = paths[start:start + SLICE]
+        ok += _write_slice(eng, part, outdir)
+        mine += len(partition_files(part, eng.rank, eng.world))
+    print(f"host developed {ok}/{mine} of its partition "
+          f"({len(paths)} files globally)")
+    return 0
+
+
+def _write_slice(eng, paths, outdir) -> int:
+    """Develop this rank's part of `paths` in one call, write each result
+    as a JPEG, and return how many were written."""
     ok = 0
-    for path, res in zip(mine, results):
+    results = eng.develop_files(paths, errors="skip")
+    for path, res in zip(partition_files(paths, eng.rank, eng.world), results):
         base = os.path.splitext(os.path.basename(path))[0]
         if isinstance(res, BatchError):   # carrier names the failure
             print(f"SKIP {path}: {res.error}")
@@ -74,9 +92,7 @@ def main(argv, device=None) -> int:
         Image.fromarray(np.asarray(res)).save(
             os.path.join(outdir, base + ".jpg"), quality=90)
         ok += 1
-    print(f"host developed {ok}/{len(mine)} of its partition "
-          f"({len(paths)} files globally)")
-    return 0
+    return ok
 
 
 if __name__ == "__main__":

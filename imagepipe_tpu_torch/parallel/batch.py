@@ -35,13 +35,25 @@ Decode/compute overlap: `develop_files` dispatches a bucket the moment it
 fills while the pool keeps decoding. Dispatch does not wait for the card:
 the chunk is staged into a pinned host buffer [B, H0, W0], copied to the
 card with `non_blocking=True` on the device's current stream, developed,
-and its output copied back into pinned memory with `non_blocking=True`,
-where a CUDA event marks the end. `_collect` waits on the oldest event,
-copies the images out of pinned memory into the results (no result aliases
-a pinned buffer) and leaves at most `inflight_batches` chunks unfetched, so
-the pinned and device memory held is bounded by that and not by the length
-of the file list. Only the calling thread touches CUDA; decode threads
-return numpy.
+and each image of its output copied back with `non_blocking=True` into a
+block of its own from torch's caching pinned host allocator, contiguous
+[3, H', W'] as on the CPU; a CUDA event marks the end. `_collect` waits on
+the oldest event and makes each result a view of its image's block, with
+no host copy; it leaves at most `inflight_batches` chunks unfetched, so the
+engine's own pinned staging and device memory is bounded by that and not
+by the length of the file list. A result is the only reference to its
+block: no result aliases another, a result of another pass, or a buffer
+the engine reuses, and the block goes back to the pool when the caller
+drops the result. A block is rounded up to a power of two (128 MB for a
+72 MB 24 MP 8-bit output, 4 MB for a ~2 MB thumbnail), and the blocks
+that live results hold, over every engine of the process, stay within
+`PINNED_RESULTS_BYTES`: past it a result is a copy in ordinary memory, as
+on the CPU, and its block goes straight back to the pool. So a caller may
+keep any number of results without locking more host memory than that; a
+caller with a long list still passes it in parts, so that it holds no more
+results than it writes at once. On the CPU each result is a copy of its
+image out of the chunk's output. Only the calling thread touches CUDA;
+decode threads return numpy.
 """
 
 from __future__ import annotations
@@ -49,6 +61,8 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import os
+import threading
+import weakref
 from collections import defaultdict
 
 import numpy as np
@@ -66,6 +80,40 @@ from ..sources import ImageSource
 
 __all__ = ["BatchEngine", "BatchError", "default_decode_workers", "make_batch_mesh",
            "shard_batch"]
+
+
+# The pinned bytes, in the pool's power-of-two blocks, that live results of
+# every engine of the process may hold at once: 64 results of 24 MP at 8
+# bits. Past it a result is a copy in ordinary memory, so what results keep
+# locked stays bounded whatever a caller keeps.
+PINNED_RESULTS_BYTES = 8 << 30
+# Reentrant: a collection that frees a result may run inside the lock.
+_pinned_lock = threading.RLock()
+_pinned_held = 0
+
+
+def _release_pinned(size: int) -> None:
+    global _pinned_held
+    with _pinned_lock:
+        _pinned_held -= size
+
+
+def _result_of(block: torch.Tensor) -> np.ndarray:
+    """The [H', W', 3] result of an image's [3, H', W'] block: a view of the
+    block while the blocks that results hold stay within
+    `PINNED_RESULTS_BYTES` (the view's base array carries the block's share
+    until it is collected), else a copy in ordinary memory."""
+    global _pinned_held
+    planar = block.numpy()
+    size = 1 << max(planar.nbytes - 1, 0).bit_length()
+    with _pinned_lock:
+        view = _pinned_held + size <= PINNED_RESULTS_BYTES
+        if view:
+            _pinned_held += size
+    if not view:
+        return np.moveaxis(planar.copy(), -3, -1)
+    weakref.finalize(planar, _release_pinned, size)
+    return np.moveaxis(planar, -3, -1)
 
 
 class BatchError:
@@ -189,7 +237,7 @@ class BatchEngine:
         # (the calling thread blocked on the pool's next file), plan, stage
         # (into pinned buffers), dispatch (enqueue of copies and launches),
         # wait (for the card, in _collect), scatter (out of pinned buffers
-        # into the results).
+        # into the results: on CUDA views of each image's pinned block).
         self.timings = collections.Counter()
         # Test/observability hook: when set to a list, (event, payload)
         # tuples are appended on every decode, dispatch, collect and error.
@@ -265,8 +313,12 @@ class BatchEngine:
 
     def _dispatch_chunk(self, chunk):
         """Stage one bucket chunk and enqueue its develop on the next row.
-        Returns (output on the host, event or None): on CUDA the output is a
-        pinned buffer that is complete once the event has fired."""
+        Returns (output on the host, event or None). On the CPU the output
+        is the chunk's [B, 3, H', W'] tensor. On CUDA it is a list of one
+        contiguous pinned block per image, each from torch's caching pinned
+        host allocator, complete once the event has fired. While a profiler
+        records, the chunk counts `batch.pinned` (its images) and
+        `batch.pinned_grew` (the blocks the pool had to allocate for them)."""
         row = self.rows[self._next_row % len(self.rows)]
         self._next_row += 1
         device = row[0]
@@ -282,28 +334,45 @@ class BatchEngine:
                     staged = self._stage(chunk, pin=True)
                 with profiling.span("batch.dispatch", into=self.timings, key="dispatch"):
                     dev_out = self._develop(plans, staged, row)
-                    out = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
-                    out.copy_(dev_out, non_blocking=True)
+                    grew = (torch.cuda.host_memory_stats()["num_host_alloc"]
+                            if profiling.recording() else None)
+                    # A non-blocking copy to the CPU takes its block from the
+                    # caching pinned host allocator.
+                    out = [img.to("cpu", non_blocking=True, memory_format=torch.contiguous_format)
+                           for img in dev_out]
                     done = torch.cuda.Event()
                     done.record()
+                    if grew is not None:
+                        profiling.count("batch.pinned", len(out))
+                        profiling.count("batch.pinned_grew",
+                                        torch.cuda.host_memory_stats()["num_host_alloc"] - grew)
         self._note("dispatch", len(chunk))
         return out, done
 
     def _collect(self, inflight, results, keep: int = 0):
         """Fetch finished outputs (oldest first) into `results` in input
         order, leaving at most `keep` chunks in flight. Each result is an
-        [H', W', 3] view of its own planar copy, as the JAX package's
+        [H', W', 3] view of planar memory of its own, as the JAX package's
         `planar_to_hwc` returns: a contiguous HWC copy is a strided
-        transpose, several times slower than the plain copy."""
+        transpose, several times slower than the plain copy. On CUDA that
+        memory is the image's pooled pinned block from `_dispatch_chunk`,
+        with no host copy: the result holds the block (a power of two, 128
+        MB for a 72 MB output) until the caller drops it, while the blocks
+        that results hold stay within `PINNED_RESULTS_BYTES`; past it, and
+        on the CPU, it is a copy. The span `batch.scatter` is the making of
+        the results."""
         while len(inflight) > keep:
             chunk, (out, done) = inflight.pop(0)
             with profiling.span("batch.wait", into=self.timings, key="wait"):
                 if done is not None:
                     done.synchronize()
             with profiling.span("batch.scatter", into=self.timings, key="scatter"):
-                planar = out.numpy()
-                for (idx, _, _), img in zip(chunk, planar):
-                    results[idx] = np.moveaxis(img.copy(), 0, -1)
+                if done is not None:
+                    for (idx, _, _), block in zip(chunk, out):
+                        results[idx] = _result_of(block)
+                else:
+                    for (idx, _, _), img in zip(chunk, out.numpy()):
+                        results[idx] = np.moveaxis(img.copy(), 0, -1)
             self._note("collected", len(chunk))
 
     def _plan_timed(self, src):

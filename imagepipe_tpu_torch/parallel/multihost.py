@@ -97,7 +97,8 @@ class MultiHostBatchEngine:
     develop_files(paths) returns THIS rank's partition of the global list,
     in partition order (`partition_files(paths, engine.rank, engine.world)`
     gives the matching paths). `engine.engine` is the local `BatchEngine`
-    (its `timings` the rank's host split)."""
+    (its `timings` the rank's host split); the results are its results, so
+    a long list is passed in parts (examples/torch_multihost_serve.py)."""
 
     def __init__(self, devices=None, out_bits: int = 8, decode_workers: int | None = None,
                  maxwidth: int = 0, maxheight: int = 0, inflight_batches: int = 2,

@@ -12,6 +12,11 @@
   mode with per-image plans, as tests/test_pallas.py and tests/test_scaled.py
   run them; `engine.develop_batch_perimage` against
   `_develop_batch_perimage_jit`.
+* The results' memory over passes of `develop_files` on small DNGs: on the
+  CPU each result a copy of its own; on the card (`cuda`-marked) each a
+  view of its own pooled pinned block, bit-equal to the chunk-wide copy,
+  on the full-size, thumbnail, width-sharded and eager routes, with the
+  counters `batch.pinned` and `batch.pinned_grew`.
 
 Contract: max |diff| <= 1 LSB and under 2% of values differing against the
 JAX package; bit-equal to the port's own single-image develop on the CPU.
@@ -35,6 +40,7 @@ from imagepipe_tpu.parallel import BatchEngine as JBatchEngine
 from imagepipe_tpu.parallel import make_batch_mesh
 import imagepipe_tpu_torch as tip
 from imagepipe_tpu_torch import engine as tengine
+from imagepipe_tpu_torch import profiling
 from imagepipe_tpu_torch import raw as traw
 from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
@@ -335,6 +341,211 @@ def test_entry_points_default_to_cuda(tmp_path):
     assert tip.Pipeline.new_from_file(path, device="cpu").device == torch.device("cpu")
     assert tip.simple_decode_8bit(path, device="cpu").data.shape == (48, 64, 3)
     assert cli.main(["converter", path], device="cpu") == 0
+
+
+# -- the results' memory --------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dngs(tmp_path_factory):
+    """Six small DNGs, Normal and Rotate90 in turn: two buckets of three,
+    so max_batch 2 gives a full and a partial chunk of each."""
+    from imagepipe_tpu_torch.dng import write_dng
+
+    d = tmp_path_factory.mktemp("dngs")
+    paths = []
+    for s, orientation in enumerate(["Normal", "Rotate90"] * 3):
+        raw = traw.synthetic_bayer(96, 64, seed=80 + s)
+        raw.orientation = traw.Orientation(orientation)
+        paths.append(str(d / f"f{s}.dng"))
+        write_dng(paths[-1], raw)
+    return paths
+
+
+def _recorded(fn):
+    """(fn's result, the recorder's counters) with a profiler recording."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.reset()
+        got = fn()
+        counters = profiling.counters()
+    profiling.reset()
+    return got, counters
+
+
+def _pinned_view(result) -> bool:
+    """Whether `result` is a view of a pinned block (the base array of a
+    tensor's `numpy()`), not a copy in ordinary memory."""
+    return isinstance(result.base, np.ndarray) and isinstance(result.base.base, torch.Tensor) \
+        and result.base.base.is_pinned()
+
+
+def _shares(results, others=None) -> bool:
+    """Whether any result shares memory with another of `results`, or with
+    any of `others` where given."""
+    if others is None:
+        return any(np.shares_memory(a, b) for i, a in enumerate(results)
+                   for b in results[i + 1:])
+    return any(np.shares_memory(a, b) for a in results for b in others)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_batch_engine_cpu_results_are_separate_copies(dngs, bits):
+    """On the CPU each result is a copy of its own: none shares memory with
+    another of its pass or of the next, a kept result holds its values over
+    two more passes, the scatter is timed and no pinned block is counted."""
+    eng = BatchEngine(devices=["cpu"], max_batch=2, out_bits=bits, decode_workers=2)
+    first, counters = _recorded(lambda: eng.develop_files(dngs))
+    kept = [o.copy() for o in first]
+    second = eng.develop_files(dngs)
+    eng.develop_files(dngs)
+    assert [o.shape for o in first] == [(64, 96, 3), (96, 64, 3)] * 3
+    assert all(o.dtype == (np.uint8 if bits == 8 else np.uint16) for o in first)
+    assert not _shares(first) and not _shares(second) and not _shares(first, second)
+    for a, b, k in zip(first, second, kept):
+        np.testing.assert_array_equal(a, k)
+        np.testing.assert_array_equal(b, k)
+    assert eng.timings["scatter"] > 0
+    assert "batch.pinned" not in counters and "batch.pinned_grew" not in counters
+
+
+CARD_ROUTES = {   # name -> (devices repeated, spatial, maxwidth, executor)
+    "full": (1, 1, 0, "auto"),
+    "thumb": (1, 1, 40, "auto"),
+    "spatial2": (2, 2, 0, "auto"),
+    "eager": (1, 1, 0, "eager"),
+}
+
+
+def _card_engine(route, bits):
+    """A BatchEngine on the card for `route`, and the dict it fills on each
+    pass with what the chunk-wide copy gave: each image of the chunk's
+    device output copied to fresh contiguous host memory, by result index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the pooled pinned results come only from CUDA")
+    repeat, spatial, maxwidth, executor = CARD_ROUTES[route]
+    eng = BatchEngine(devices=["cuda:0"] * repeat, spatial=spatial, max_batch=2, out_bits=bits,
+                      maxwidth=maxwidth, executor=executor, decode_workers=2)
+    want, outs = {}, []
+    develop, dispatch = eng._develop, eng._dispatch_chunk
+
+    def develop_spy(plans, staged, row):
+        out = develop(plans, staged, row)
+        outs.append([np.moveaxis(img.contiguous().cpu().numpy(), 0, -1) for img in out])
+        return out
+
+    def dispatch_spy(chunk):
+        got = dispatch(chunk)
+        for (idx, _, _), img in zip(chunk, outs.pop()):
+            want[idx] = img
+        return got
+
+    eng._develop, eng._dispatch_chunk = develop_spy, dispatch_spy
+    return eng, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(CARD_ROUTES))
+@pytest.mark.parametrize("bits", [8, 16])
+def test_batch_engine_card_results_are_views_of_their_own_pinned_blocks(dngs, bits, route):
+    """On the card each result equals the chunk-wide copy bit for bit, in
+    its strides too (contiguous [3, H', W'] with the channels moved last,
+    Rotate90 as well), and is a view of a pinned block of its own: no two
+    results of a pass share memory, nor a result with one of a later pass,
+    and a kept result holds its values over three more passes."""
+    eng, want = _card_engine(route, bits)
+    first = eng.develop_files(dngs)
+    assert sorted(want) == list(range(len(dngs)))
+    for got, ref in zip(first, [want[i] for i in range(len(dngs))]):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert got.strides == ref.strides
+        np.testing.assert_array_equal(got, ref)
+        assert _pinned_view(got)
+    assert not _shares(first)
+    kept = [o.copy() for o in first]
+    for _ in range(3):
+        later = eng.develop_files(dngs)
+        assert not _shares(later) and not _shares(first, later)
+    for got, k in zip(first, kept):
+        np.testing.assert_array_equal(got, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(CARD_ROUTES))
+def test_batch_engine_card_counts_pinned_and_stops_growing(dngs, route):
+    """While a profiler records, every image counts `batch.pinned`; once
+    each pass drops the results of the pass before last, the pool holds
+    enough blocks and `batch.pinned_grew` stops."""
+    eng, _ = _card_engine(route, 8)
+
+    def passes():
+        kept, counts = [], []
+        for _ in range(8):
+            kept.append(eng.develop_files(dngs))
+            if len(kept) > 2:
+                kept.pop(0)
+            counts.append(profiling.counters())
+        return counts
+
+    counts, _ = _recorded(passes)
+    assert [c.get("batch.pinned", 0) for c in counts] == [len(dngs) * (k + 1) for k in range(8)]
+    grew = [c.get("batch.pinned_grew", 0) for c in counts]
+    assert grew[4:] == [grew[4]] * 4, grew
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_result_views_stop_at_the_pinned_bound(monkeypatch, dtype):
+    """`_result_of` makes views of blocks while the blocks that live results
+    hold, counted as the pool's power-of-two blocks, stay within
+    `PINNED_RESULTS_BYTES`; past it a result is a copy with the same values
+    and strides. Collecting a view gives its share back."""
+    import gc
+
+    from imagepipe_tpu_torch.parallel import batch
+
+    blocks = [torch.from_numpy((np.arange(3 * 20 * 30) + k).astype(dtype).reshape(3, 20, 30))
+              for k in range(4)]
+    size = 1 << (blocks[0].numpy().nbytes - 1).bit_length()
+    base = batch._pinned_held
+    monkeypatch.setattr(batch, "PINNED_RESULTS_BYTES", base + 2 * size)
+    got = [batch._result_of(b) for b in blocks[:3]]
+    assert [np.shares_memory(g, b.numpy()) for g, b in zip(got, blocks)] == [True, True, False]
+    for g, b in zip(got, blocks):
+        want = np.moveaxis(b.numpy(), 0, -1)
+        assert g.strides == want.strides
+        np.testing.assert_array_equal(g, want)
+    assert batch._pinned_held == base + 2 * size
+    del got[0]
+    gc.collect()
+    assert batch._pinned_held == base + size
+    got.append(batch._result_of(blocks[3]))
+    assert np.shares_memory(got[-1], blocks[3].numpy())
+    del got
+    gc.collect()
+    assert batch._pinned_held == base
+
+
+@pytest.mark.cuda
+def test_batch_engine_card_results_past_the_pinned_bound_are_copies(dngs, monkeypatch):
+    """With room for three blocks, three results of a pass are pinned views
+    and three are copies in ordinary memory, all bit-equal to the chunk-wide
+    copy; once the pass's results are dropped the room comes back."""
+    import gc
+
+    from imagepipe_tpu_torch.parallel import batch
+
+    eng, want = _card_engine("full", 8)
+    size = 1 << (3 * 64 * 96 - 1).bit_length()
+    monkeypatch.setattr(batch, "PINNED_RESULTS_BYTES", batch._pinned_held + 3 * size)
+    for _ in range(2):
+        got = eng.develop_files(dngs)
+        assert sorted(map(_pinned_view, got)) == [False] * 3 + [True] * 3
+        for i, g in enumerate(got):
+            assert g.strides == want[i].strides
+            np.testing.assert_array_equal(g, want[i])
+        assert not _shares(got)
+        del got
+        gc.collect()
 
 
 # -- the batched kernels' wrappers and the eager batch --------------------

@@ -74,6 +74,36 @@ def test_multihost_serve_single_process(shoot, tmp_path, capsys):
     assert "SKIP" in printed and "host developed 2/3 of its partition" in printed
 
 
+@pytest.mark.parametrize("name", ["torch_batch_serve", "torch_multihost_serve"])
+def test_serve_examples_develop_in_slices(shoot, tmp_path, capsys, monkeypatch, name):
+    """With slices of one file each the serving examples make one
+    `develop_files` call a file and write what a single call writes."""
+    from imagepipe_tpu_torch.parallel import BatchEngine
+
+    module = _load(name)
+    monkeypatch.setattr(module, "SLICE", 1)
+    calls = []
+    develop_files = BatchEngine.develop_files
+
+    def counted(self, paths, errors="raise"):
+        calls.append(len(paths))
+        return develop_files(self, paths, errors)
+
+    monkeypatch.setattr(BatchEngine, "develop_files", counted)
+    out = tmp_path / "out"
+    argv = [str(shoot), str(out)]
+    if name == "torch_batch_serve":
+        argv.insert(1, "--out")
+    assert module.main(argv, device="cpu") == 0
+    assert calls == [1, 1, 1]
+    assert sorted(p.name for p in out.iterdir()) == ["a.jpg", "b.jpg"]
+    printed = capsys.readouterr()
+    if name == "torch_batch_serve":
+        assert "c.dng: SKIPPED" in printed.err
+    else:
+        assert "host developed 2/3 of its partition" in printed.out
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_example_imports_only_the_port(name):
     """Importing the example loads imagepipe_tpu_torch and no module of the
