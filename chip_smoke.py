@@ -276,6 +276,7 @@ from imagepipe_tpu_torch.engine import develop_fused, make_develop_plan, planar_
 from imagepipe_tpu_torch.hasher import BufHasher
 from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
+from imagepipe_tpu_torch.kernels import library
 from imagepipe_tpu_torch.kernels import rotate as krot
 from imagepipe_tpu_torch.kernels import suffix as ksuf
 from imagepipe_tpu_torch.kernels import variants as kv
@@ -796,7 +797,7 @@ def phase1d(device, sp_cases, bayer_bases) -> int:
         plan = _plan(raw, bits, device)
         whole = kdev.develop(plan, _upload(raw, device))
         for spatial in (2, 3):
-            shards = kdev.stage_sp(plan, raw.data, spatial)
+            shards = tengine.stage_sp(plan, raw.data, spatial)
             for devices in _sp_devices(device, spatial):
                 kdev.SP_LAUNCHES = 0
                 got = kdev.develop_sp(plan, shards, devices)
@@ -813,7 +814,7 @@ def phase1d(device, sp_cases, bayer_bases) -> int:
                                          f"unsharded develop in {int((got != whole).sum())} values")
                 worst = max(worst, _check(
                     f"{label} {w}x{h} spatial {spatial} ({where}, shards "
-                    f"{kdev.sp_shards(plan.width, spatial)}, {launches} launches; bit-equal to "
+                    f"{tengine.sp_shards(plan.width, spatial)}, {launches} launches; bit-equal to "
                     f"the unsharded develop) vs plain", got, plain))
                 del got, plain
         del whole
@@ -821,7 +822,7 @@ def phase1d(device, sp_cases, bayer_bases) -> int:
     plans = [_plan(r, 8, device, exposure=e) for r, e in zip(raws, (0.3, -0.2, 0.5, 0.1))]
     whole = kdev.develop_batch(plans, torch.stack([_upload(r, device) for r in raws]))
     for spatial in (2, 3):
-        shards = kdev.stage_sp(plans[0], [r.data for r in raws], spatial)
+        shards = tengine.stage_sp(plans[0], [r.data for r in raws], spatial)
         kdev.SP_LAUNCHES = 0
         got = kdev.develop_sp_batch(plans, shards, [device] * spatial)
         launches = kdev.SP_LAUNCHES
@@ -1553,20 +1554,20 @@ def phase3d(device, card) -> dict:
         raws = [traw.synthetic_bayer(w, h, seed=30 + i) for i in range(tdk.INPUTS)]
         plan = _plan(raws[0], bits, device, numerics="direct")
         planes = [_upload(r, device) for r in raws]
-        staged = [[s.to(device) for s in kdev.stage_sp(plan, r.data, 2)] for r in raws]
-        x_offs = [x for x, _ in kdev.sp_shards(plan.width, 2)]
+        staged = [[s.to(device) for s in tengine.stage_sp(plan, r.data, 2)] for r in raws]
+        x_offs = [x for x, _ in tengine.sp_shards(plan.width, 2)]
         tables = kdev._device_tables(plan, device)
         for shards in staged:
-            kdev.exchange_halos(shards)
+            tengine.exchange_halos(shards)
         outs = [[kdev._launch(plan, s[None], *tables, x_off=x)[0] for s, x in zip(shards, x_offs)]
                 for shards in staged]
         t = {
             "shard launches": tdk.device_ms([lambda s=s: [kdev._launch(plan, sh[None], *tables, x_off=x)
                                                           for sh, x in zip(s, x_offs)]
                                              for s in staged], device),
-            "halo exchange": tdk.device_ms([lambda s=s: kdev.exchange_halos(s) for s in staged],
+            "halo exchange": tdk.device_ms([lambda s=s: tengine.exchange_halos(s) for s in staged],
                                            device),
-            "assembly": tdk.device_ms([lambda o=o: kdev.assemble(o, device) for o in outs], device),
+            "assembly": tdk.device_ms([lambda o=o: tengine.assemble(o, device) for o in outs], device),
             "develop_sp": tdk.device_ms([lambda s=s: kdev.develop_sp(plan, s, [device] * 2)
                                          for s in staged], device),
             "develop (unsharded)": tdk.device_ms([lambda p=p: kdev.develop(plan, p) for p in planes],
@@ -1575,7 +1576,7 @@ def phase3d(device, card) -> dict:
         pms = _plain_ms(lambda: kdev.develop_sp_plain(plan, staged[0]), device)
         bound = sp_bound(plan, planes[0], staged[0])
         print(f"  develop_sp {label}, spatial 2 on one card (shards "
-              f"{kdev.sp_shards(plan.width, 2)}), device ms back to back: "
+              f"{tengine.sp_shards(plan.width, 2)}), device ms back to back: "
               + "; ".join(f"{k} {v['ms']:.4f} (runs {v['runs']}"
                           f"{', HOST-BOUND' if v['host_bound'] else ''})" for k, v in t.items())
               + f"; plain {pms:.4f} ms one call from idle; bound {bound[0]:.4f} ms by {bound[1]} "
@@ -2401,8 +2402,8 @@ def main() -> int:
     start = time.perf_counter()
 
     t = time.perf_counter()
-    lib = kdev.build()
-    print(f"phase 0: built {lib.name} from {sorted(p.name for p in kdev._CSRC.glob('*.cu'))} "
+    lib = library.build()
+    print(f"phase 0: built {lib.name} from {sorted(p.name for p in library._CSRC.glob('*.cu'))} "
           f"in {time.perf_counter() - t:.1f} s")
 
     max_err, max_err_scaled = _phase("phase 1: kernels vs plain versions, full size",

@@ -50,7 +50,7 @@ NOT_PORTED: dict[str, str] = {
                                                     "padded plane; " + _TPU_WORKAROUND),
     # jax.numpy staging of host planes.
     "sources.staged_raw_plane": ("jax.numpy staging the port's copy of sources.py leaves "
-                                 "out; planes reach the card through kernels/develop.upload"),
+                                 "out; planes reach the card through kernels/library.upload"),
     "sources.RasterImage.staged_planes": ("jax.numpy staging the port's copy of sources.py "
                                           "leaves out; rasters reach the card through "
                                           "ops/gofloat.raster_planes"),

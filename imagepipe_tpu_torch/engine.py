@@ -21,12 +21,23 @@ the unbanded develop and with a lower peak of device memory.
 calibration, the batch engine's eager executor (parallel/batch.py);
 `develop_batch_fn(plan)` is its closure over one plan's calibration; and
 `develop_batch_perimage_sp` the same batch width-sharded across a row of
-devices.
+devices. The width shards' plain code (`sp_shards`, `stage_sp`,
+`stage_columns`, `exchange_halos`, `develop_shard`, `assemble`) is also
+what the develop kernel's shard launches (kernels/develop.py) cut, stage
+and assemble with, and its plain version.
+
+`planar_to_hwc` brings an output to the host. On CUDA every host output,
+the pipeline's and the batch engine's, is made by one pair of functions:
+`start_host_copy` starts the copy into pooled pinned blocks, and
+`host_results` makes each block a result, a view while the blocks that
+live results hold stay within `PINNED_RESULTS_BYTES`.
 """
 
 from __future__ import annotations
 
 import copy
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -34,20 +45,23 @@ import torch
 from . import color as cc
 from . import profiling
 from .raw import CFA
-from .kernels.demosaic_full import stencil_demosaic_planes
+from .kernels.demosaic_full import stencil_demosaic_planes, stencil_demosaic_shard
 from .ops.colorspaces import normalize_wbs
 from .ops.demosaic import minscale_for
 from .ops.gofloat import levels
-from .scaling import (calculate_scale, scale_down_axes, scale_down_planar, scaling_size,
-                      source_span)
+from .ops.transform import apply_flips
+from .scaling import (calculate_scale, resample_aligned, scale_down_axes, scale_down_planar,
+                      scaling_size, source_span)
 from .spline import SplineFunc, eval_spline_arrays
 
 __all__ = ["DevelopPlan", "make_develop_plan", "plan_from_jax",
            "develop_fused", "auto_bands", "develop_batch_perimage",
            "develop_batch_fn", "stack_params", "normalize_plane",
            "develop_batch_perimage_sp", "stage_perimage_sp", "sp_spans",
-           "finish_planes", "normalize_plane_np", "planar_to_hwc", "check_stage_limit",
-           "STAGE_LIMITS"]
+           "sp_shards", "stage_sp", "stage_columns", "exchange_halos", "assemble",
+           "develop_shard", "finish_planes", "normalize_plane_np", "planar_to_hwc",
+           "start_host_copy", "host_results", "check_stage_limit", "STAGE_LIMITS",
+           "PINNED_RESULTS_BYTES"]
 
 _PARAM_KEYS = ("mins", "ranges", "mul", "cmatrix", "rgbmatrix")
 _SPLINE_KEYS = ("spline_xs", "spline_ys", "spline_c1", "spline_c2", "spline_c3")
@@ -56,6 +70,20 @@ _SPLINE_KEYS = ("spline_xs", "spline_ys", "spline_c1", "spline_c2", "spline_c3")
 # demosaic (1), after WB + matrix + Lab (2), after the spline (3), or the
 # whole chain (4), as the JAX package's develop kernels' stage_limit.
 STAGE_LIMITS = (1, 2, 3, 4)
+
+# The width shards' unit: csrc/develop.cu's tile is 128 columns wide, and
+# shards of whole tiles keep its interior tiles and vector stores in play.
+_SHARD_TILE = 128
+
+# The pinned bytes, in the pool's power-of-two blocks, that live host
+# results of the process (every pipeline's and batch engine's) may hold at
+# once: 64 results of 24 MP at 8 bits. Past it a result is a copy in
+# ordinary memory, so what results keep locked stays bounded whatever a
+# caller keeps.
+PINNED_RESULTS_BYTES = 8 << 30
+# Reentrant: a collection that frees a result may run inside the lock.
+_pinned_lock = threading.RLock()
+_pinned_held = 0
 
 
 class DevelopPlan:
@@ -340,8 +368,6 @@ def develop_fused(plan: DevelopPlan, plane: torch.Tensor,
     bands = auto_bands(plan) if bands is None else bands
     if bands <= 1 or plan.mode != "cfa" or plan.dem_path != "full":
         return _develop_one(plan, plane, plan.numerics)
-    from .kernels.develop import apply_flips
-
     h = plan.height
     band_h = -(-h // bands)
     cfa = CFA(plan.cfa_name)
@@ -401,6 +427,126 @@ def stack_params(param_dicts) -> dict:
             for k, v in param_dicts[0].items()}
 
 
+# -- the width shards --------------------------------------------------------
+#
+# An image's crop cut into column shards, one per device of a row; a device
+# may appear more than once (two shards on one card). Each shard is staged
+# on the host with a 1-column halo each side, the inner halos are copied
+# from the neighbouring shards on the devices, each shard is developed from
+# its own columns, and the shards' outputs are concatenated on the first
+# device, where the EXIF flips permute the whole image. Plain PyTorch: the
+# develop kernel's shard launches (kernels/develop.py::develop_sp) and the
+# sharded eager develop below share it.
+
+def sp_shards(width: int, spatial: int) -> list[tuple[int, int]]:
+    """(x_off, w) of each column shard of a crop `width` wide split
+    `spatial` ways. Every shard but the last is the same whole number of
+    the develop kernel's 128-column tiles (the width over `spatial`,
+    rounded up to a tile) and the last takes the rest, so interior tiles
+    and 4-pixel vector stores stay in play: the counterpart of
+    `sp_width_pad` (develop_pallas.py:657-662), with nothing padded. A crop
+    narrower than spatial - 1 such shards gets fewer shards."""
+    if spatial < 1 or width < 1:
+        raise ValueError(f"sp_shards: width {width}, spatial {spatial}")
+    per = -(-width // (spatial * _SHARD_TILE)) * _SHARD_TILE
+    return [(x, min(per, width - x)) for x in range(0, width, per)]
+
+
+def stage_sp(plan: DevelopPlan, planes, spatial: int, pin: bool = False) -> list[torch.Tensor]:
+    """Host staging for the width-sharded develop (the counterpart of
+    `stage_plane_rows_np`, develop_pallas.py:665-677): the plan's crop of
+    `planes` cut into the shards of `sp_shards(plan.width, spatial)` by
+    `stage_columns`, with zero halo columns. `exchange_halos` fills the
+    inner halos on the devices; the outer ones stay zero and validity masks
+    them off."""
+    return stage_columns(plan, planes, sp_shards(plan.width, spatial), pin=pin)
+
+
+def stage_columns(plan: DevelopPlan, planes, spans, pin: bool = False,
+                  halos: bool = False) -> list[torch.Tensor]:
+    """The plan's crop of `planes` (one [H0, W0] host array, rgb [H0, W0,
+    3], or a sequence of B of them) as one host tensor per span (x0, w) of
+    crop columns: [H, w + 2] (or [B, H, w + 2]; rgb with a last axis of 3)
+    holding columns x0 .. x0 + w - 1 at 1..w. Columns 0 and w + 1 are a
+    halo: the crop's columns x0 - 1 and x0 + w where `halos` is set and
+    they lie inside the crop, else zero. pin: allocate in pinned memory,
+    for a copy to the card that does not block the host."""
+    single = getattr(planes, "ndim", None) == (3 if plan.mode == "rgb" else 2)
+    seq = [np.asarray(planes)] if single else [np.asarray(p) for p in planes]
+    dtype = torch.from_numpy(seq[0][:0]).dtype
+    h, y0 = plan.height, plan.crop_y
+    shards = []
+    for x_off, w in spans:
+        buf = torch.empty((len(seq), h, w + 2, *seq[0].shape[2:]), dtype=dtype, pin_memory=pin)
+        host = buf.numpy()
+        lo = max(x_off - 1, 0) if halos else x_off
+        hi = min(x_off + w + 1, plan.width) if halos else x_off + w
+        host[:, :, :lo - x_off + 1] = 0
+        host[:, :, hi - x_off + 1:] = 0
+        for i, p in enumerate(seq):
+            host[i, :, lo - x_off + 1:hi - x_off + 1] = p[y0:y0 + h,
+                                                          plan.crop_x + lo:plan.crop_x + hi]
+        shards.append(buf[0] if single else buf)
+    return shards
+
+
+def exchange_halos(shards) -> None:
+    """Fill the inner halo columns of staged shards ([.., H, w + 2], in
+    column order) in place: shard i + 1's column 0 takes shard i's last own
+    column, shard i's last column takes shard i + 1's first own column.
+    Between two cards each is a peer-to-peer copy that torch orders on both
+    devices' current streams with CUDA events (a two-way barrier), never
+    with a host synchronize; on one card it is a copy on its stream."""
+    for left, right in zip(shards, shards[1:]):
+        right[..., 0].copy_(left[..., -2], non_blocking=True)
+        left[..., -1].copy_(right[..., 1], non_blocking=True)
+
+
+def assemble(outs, device) -> torch.Tensor:
+    """The shards' outputs [.., 3, H, w] concatenated along the width on
+    `device` (copies from other cards ordered by events, as above)."""
+    return torch.cat([o.to(device, non_blocking=True) for o in outs], dim=-1)
+
+
+def _x_offsets(shards) -> list[int]:
+    """The global column offset of each staged shard [.., H, w + 2]."""
+    return np.cumsum([0] + [s.shape[-1] - 2 for s in shards[:-1]]).tolist()
+
+
+def develop_shard(plan: DevelopPlan, local: torch.Tensor, x_off: int, numerics: str = "direct",
+                  out_cols=None) -> torch.Tensor:
+    """One shard of raw counts developed in plain PyTorch with the whole
+    image's validity, CFA colour and resample windows -> unflipped
+    [3, H', n]. `local` ([H, w + 2], rgb [H, w + 2, 3]; `stage_columns`)
+    holds the crop's columns x_off .. x_off + w - 1 at 1..w and a 1-column
+    halo each side, which only the stencil demosaic reads. A full-size
+    plan develops those w columns; a resize plan ('scaled', 'fulldown',
+    'plaindown') its output columns out_cols = (o0, o1), whose source
+    windows the shard must hold (`scaling.source_span`)."""
+    p = plan.params
+    local = local.float()
+    if plan.mode == "rgb":
+        rgbe = [levels(local[:, 1:-1, c], p["mins"][c], p["ranges"][c]) for c in range(3)]
+        rgbe.append(torch.zeros_like(rgbe[0]))
+    else:
+        v = levels(local, p["mins"][0], p["ranges"][0])
+        if plan.mode == "mono":
+            c = v[:, 1:-1].contiguous()
+            rgbe = [c, c, c, torch.zeros_like(c)]
+        elif plan.dem_path == "scaled":
+            rgbe = [v[:, 1:-1]]
+        else:
+            rgbe = stencil_demosaic_shard(v, plan.cfa_name, plan.height, plan.width, x_off)
+    if plan.dem_path != "full":
+        g = scale_down_axes(plan.width, plan.height, plan.dem_w, plan.dem_h)
+        cfa = CFA(plan.cfa_name) if plan.dem_path == "scaled" else None
+        rgbe = list(resample_aligned(torch.stack(rgbe), g, plan.width, plan.height, 4, cfa,
+                                     out_cols, x_off))
+    return finish_planes(rgbe, p, out_bits=plan.out_bits, linear=plan.linear,
+                         apply_curve=plan.apply_curve, n_knots=plan.n_knots,
+                         orientation_flips=(False, False, False), numerics=numerics)
+
+
 # -- the width-sharded eager develop -----------------------------------------
 #
 # The counterpart of the JAX package's GSPMD partition of
@@ -415,14 +561,12 @@ def sp_spans(plan: DevelopPlan, spatial: int) -> list[tuple[int, int, int, int]]
     """(o0, n, x0, w) of each shard of the sharded eager develop: output
     columns o0 .. o0 + n - 1 (before the flips) from the crop's columns
     x0 .. x0 + w - 1. A full-size plan cuts its crop into
-    `kdev.sp_shards(plan.width, spatial)` and each shard develops its own
+    `sp_shards(plan.width, spatial)` and each shard develops its own
     columns. A resize plan ('scaled', 'fulldown', 'plaindown') has windows
     that cross any cut of its source, so it cuts its OUTPUT columns
     instead (`sp_shards(plan.dem_w, spatial)`), and each shard takes the
     source span its windows read (`source_span`); neighbouring spans
     overlap."""
-    from .kernels.develop import sp_shards
-
     if plan.dem_path == "full":
         return [(x, w, x, w) for x, w in sp_shards(plan.width, spatial)]
     g = scale_down_axes(plan.width, plan.height, plan.dem_w, plan.dem_h)
@@ -438,16 +582,14 @@ def stage_perimage_sp(plan: DevelopPlan, planes, spatial: int,
     """Host staging of the sharded eager develop: `planes` (one normalized
     host plane or a sequence of B) as one tensor per shard of
     `sp_spans(plan, spatial)` ([B, H, w + 2], rgb [B, H, w + 2, 3];
-    `kdev.stage_columns`). A full-size plan's shards are `kdev.stage_sp`'s,
+    `stage_columns`). A full-size plan's shards are `stage_sp`'s,
     whose inner halos `exchange_halos` fills on the devices; a resize
     plan's overlapping spans take their halo columns from the host, which
     holds every column."""
-    from .kernels import develop as kdev
-
     if plan.dem_path == "full":
-        return kdev.stage_sp(plan, planes, spatial, pin=pin)
+        return stage_sp(plan, planes, spatial, pin=pin)
     spans = [(x0, w) for _, _, x0, w in sp_spans(plan, spatial)]
-    return kdev.stage_columns(plan, planes, spans, pin=pin, halos=True)
+    return stage_columns(plan, planes, spans, pin=pin, halos=True)
 
 
 def develop_batch_perimage_sp(plans, planes_shards, devices) -> torch.Tensor:
@@ -455,14 +597,12 @@ def develop_batch_perimage_sp(plans, planes_shards, devices) -> torch.Tensor:
     `parallel.make_batch_mesh`; a device may repeat): `planes_shards` are
     `stage_perimage_sp(plans[0], ..., len(devices))`'s, on the host or on
     their devices, shard i on devices[i]. For a cfa full-size plan the
-    halos are exchanged between the devices (`kdev.exchange_halos`); each
+    halos are exchanged between the devices (`exchange_halos`); each
     shard develops its columns of every image with that image's
-    calibration in its plan's numerics (`kdev.develop_shard`), and the
+    calibration in its plan's numerics (`develop_shard`), and the
     outputs are assembled on devices[0] and flipped there -> quantized
     planar [B, 3, H', W']. Plain PyTorch on any device: no kernel is
     launched."""
-    from .kernels import develop as kdev
-
     plan = plans[0]
     statics = plan.statics()
     if any(p.statics() != statics for p in plans[1:]):
@@ -478,39 +618,87 @@ def develop_batch_perimage_sp(plans, planes_shards, devices) -> torch.Tensor:
                          f"and spans {spans}")
     shards = [s.to(d, non_blocking=True) for s, d in zip(planes_shards, devices)]
     if plan.dem_path == "full" and plan.mode == "cfa":
-        kdev.exchange_halos(shards)
+        exchange_halos(shards)
     outs = []
     for (o0, n, x0, _), s in zip(spans, shards):
         local = [p.to(s.device) for p in plans]
-        outs.append(torch.stack([kdev.develop_shard(p, s[i], x0, p.numerics, (o0, o0 + n))
+        outs.append(torch.stack([develop_shard(p, s[i], x0, p.numerics, (o0, o0 + n))
                                  for i, p in enumerate(local)]))
-    return kdev.apply_flips(kdev.assemble(outs, devices[0]), plan.orientation_flips)
+    return apply_flips(assemble(outs, devices[0]), plan.orientation_flips)
 
+
+# -- host output -------------------------------------------------------------
 
 def planar_to_hwc(out: torch.Tensor) -> np.ndarray:
     """[3, H, W] tensor -> host [H, W, 3] numpy view. The span `output.d2h`
     is the wait for the work queued before the copy, then the copy.
 
     On CUDA the copy goes into a block of torch's caching pinned host
-    allocator, laid out as `out` is, and the result is a view of that block
-    alone. The block goes back to the pool when the result is dropped, and
-    a later output reuses it with no fresh pages to touch. A caller that
-    keeps N results holds N blocks, each rounded up to a power of two (a
-    78 MB output holds 128 MB). While a profiler records, each such call
-    counts `output.pinned`, and `output.pinned_grew` where the pool had to
-    allocate a block. On the CPU the result is a view of `out` itself."""
-    cuda = out.device.type == "cuda"
-    grew = (torch.cuda.host_memory_stats()["num_host_alloc"]
-            if cuda and profiling.recording() else None)
+    allocator, laid out as `out` is (`start_host_copy`), and the result is
+    a view of that block alone, or a copy past `PINNED_RESULTS_BYTES`
+    (`host_results`). The block goes back to the pool when the result is
+    dropped, and a later output reuses it with no fresh pages to touch. On
+    the CPU the result is a view of `out` itself."""
     with profiling.span("output.d2h"):
-        if cuda:
-            host = torch.empty_like(out, device="cpu", pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            torch.cuda.current_stream(out.device).synchronize()
-        else:
-            host = out.cpu()
-    if grew is not None:
-        profiling.count("output.pinned")
-        if torch.cuda.host_memory_stats()["num_host_alloc"] > grew:
-            profiling.count("output.pinned_grew")
+        if out.device.type == "cuda":
+            return host_results(*start_host_copy(out))[0]
+        host = out.cpu()
     return np.moveaxis(host.numpy(), -3, -1)
+
+
+def start_host_copy(out: torch.Tensor) -> tuple[list[torch.Tensor], torch.cuda.Event]:
+    """Start copying a CUDA output to the host without blocking, each image
+    into a block of its own from torch's caching pinned host allocator: a
+    [3, H, W] output laid out as it is (as `.cpu()` lays it out), each
+    image of a batch [B, 3, H, W] contiguous (as the batch engine's CPU
+    results are). Returns the blocks and a CUDA event, recorded on the
+    output device's current stream after the copies, that fires once they
+    hold the images. While a profiler records, counts `output.pinned`
+    (images copied) and `output.pinned_grew` (the blocks the pool had to
+    allocate for them)."""
+    grew = torch.cuda.host_memory_stats()["num_host_alloc"] if profiling.recording() else None
+    if out.dim() == 3:
+        images, layout = [out], torch.preserve_format
+    else:
+        images, layout = out, torch.contiguous_format
+    blocks = [torch.empty_like(img, device="cpu", pin_memory=True, memory_format=layout)
+              .copy_(img, non_blocking=True) for img in images]
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+    if grew is not None:
+        profiling.count("output.pinned", len(blocks))
+        profiling.count("output.pinned_grew",
+                        torch.cuda.host_memory_stats()["num_host_alloc"] - grew)
+    return blocks, done
+
+
+def host_results(blocks, done: torch.cuda.Event | None = None) -> list[np.ndarray]:
+    """Wait on `done` (where given), then each [3, H, W] host block as an
+    [H, W, 3] result: a view of the block while the blocks that live
+    results hold, counted as the pool's power-of-two blocks (a 78 MB output
+    holds 128 MB), stay within `PINNED_RESULTS_BYTES`, else a copy in
+    ordinary memory with the same values and strides. A view's base array
+    carries its block's share until it is collected."""
+    global _pinned_held
+    if done is not None:
+        done.synchronize()
+    results = []
+    for block in blocks:
+        planar = block.numpy()
+        size = 1 << max(planar.nbytes - 1, 0).bit_length()
+        with _pinned_lock:
+            view = _pinned_held + size <= PINNED_RESULTS_BYTES
+            if view:
+                _pinned_held += size
+        if view:
+            weakref.finalize(planar, _release_pinned, size)
+        else:
+            planar = planar.copy(order="K")
+        results.append(np.moveaxis(planar, -3, -1))
+    return results
+
+
+def _release_pinned(size: int) -> None:
+    global _pinned_held
+    with _pinned_lock:
+        _pinned_held -= size

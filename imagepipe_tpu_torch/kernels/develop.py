@@ -19,12 +19,15 @@ exchange between the shards: the counterpart of `develop_pallas_sp` and of
   `develop_batch_plain`, `develop_sp_plain` and `develop_sp_batch_plain`:
   the same develop written in plain PyTorch (crop -> levels -> stencil
   demosaic -> finish_planes in 'direct' numerics; the sharded ones develop
-  each shard from its own columns). Planes on a CUDA device launch the
-  kernel, or the wrapper raises; nothing falls back.
-* The kernel is built on first use by nvcc, with every other kernel of
-  `csrc/`, into one library under `imagepipe_tpu_torch/build/` keyed by a
-  hash of every source, header and flag (`build`), and bound with ctypes.
-  Importing this module builds nothing.
+  each shard from its own columns, `engine.develop_shard`). Planes on a
+  CUDA device launch the kernel, or the wrapper raises; nothing falls back.
+* The kernel is built on first use, with every other kernel of `csrc/`, by
+  kernels/library.py; this module declares the signatures of the entry
+  points it calls. Importing it builds nothing.
+* The width shards are cut, staged, their halos exchanged and their outputs
+  assembled by the eager engine's plain code (`engine.sp_shards`,
+  `stage_sp`, `exchange_halos`, `assemble`), which launches nothing; the
+  EXIF flips are `ops.transform.apply_flips`.
 * `LAUNCHES` counts the launches of `develop`, `BATCH_LAUNCHES` those of
   `develop_batch` and `SP_LAUNCHES` the shard launches of `develop_sp(_batch)`,
   so a run can show its main path went through the kernel.
@@ -33,9 +36,9 @@ exchange between the shards: the counterpart of `develop_pallas_sp` and of
   demosaic, Lab or the spline, `engine.finish_planes`) counts in
   `CUT_LAUNCHES[stage_limit]` instead.
 * Host tables reach the card from pinned memory without blocking the host
-  (`upload`), so a caller can stage the next batch while this one runs. The
-  kernel's demosaic reads a 16-byte table per CFA phase (`demosaic_phases`),
-  uploaded once per CFA and device.
+  (`library.upload`), so a caller can stage the next batch while this one
+  runs. The kernel's demosaic reads a 16-byte table per CFA phase
+  (`demosaic_phases`), uploaded once per CFA and device.
 * `division_mismatches` runs csrc/division_check.cu, the card's proof that
   the kernels' reciprocal-multiply division equals the IEEE one.
 
@@ -48,30 +51,23 @@ to the cross-path contract of the JAX package (tests/test_pallas.py): max
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from functools import lru_cache
-from pathlib import Path
+from functools import cache, lru_cache
 
 import numpy as np
 import torch
 
 from ..raw import CFA
-from ..engine import _develop_one, check_stage_limit, finish_planes
-from ..ops.gofloat import levels
-from ..scaling import resample_aligned, scale_down_axes
-from .demosaic_full import OFFSETS_3X3, stencil_demosaic_shard
+from ..engine import (_develop_one, _x_offsets, assemble, check_stage_limit, develop_shard,
+                      exchange_halos)
+from ..ops.transform import apply_flips
+from . import library
+from .demosaic_full import OFFSETS_3X3
 
 __all__ = ["develop", "develop_plain", "develop_batch", "develop_batch_plain",
            "develop_sp", "develop_sp_plain", "develop_sp_batch", "develop_sp_batch_plain",
-           "sp_shards", "stage_sp", "stage_columns", "exchange_halos", "assemble",
-           "develop_shard",
            "kernel_supported", "spline_stride", "calib_tables", "batch_tables", "demosaic_phases",
-           "develop_smem_bytes", "division_mismatches", "upload", "apply_flips", "build",
-           "build_key", "check_plane", "check_batch", "compare", "LAUNCHES",
-           "BATCH_LAUNCHES", "SP_LAUNCHES", "CUT_LAUNCHES", "MAX_PATTERN", "MAX_SMEM",
+           "develop_smem_bytes", "division_mismatches", "check_plane", "check_batch", "compare",
+           "LAUNCHES", "BATCH_LAUNCHES", "SP_LAUNCHES", "CUT_LAUNCHES", "MAX_PATTERN",
            "MAX_LSB", "MAX_FLIP_FRACTION"]
 
 # Kernel launches by `develop`, by `develop_batch` and the shard launches of
@@ -91,110 +87,26 @@ MAX_FLIP_FRACTION = 0.02
 # Largest CFA period the kernel takes (the reference's 48x48 pattern tile).
 MAX_PATTERN = 48
 
-# The most dynamic shared memory a block can have on Hopper (227 KB).
-MAX_SMEM = 232448
-
 # csrc/develop.cu's tile: 128 x 8 output pixels, staged with a 1-pixel halo.
 _TILE_W, _TILE_H = 128, 8
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_BUILD_DIR = _PKG / "build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-Xcompiler", "-fPIC")
 
-_lib = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    candidates = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
-    candidates.append(shutil.which("nvcc"))
-    for c in candidates:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found: the develop kernels need the CUDA toolkit")
-
-
-def build_key(csrc: Path = _CSRC) -> str:
-    """Hash of the nvcc flags and of every `*.cu` and `*.cuh` under `csrc`
-    (names and bytes): an edit to any source or header changes it."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for f in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
-        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
-    return h.hexdigest()[:16]
-
-
-def build() -> Path:
-    """Compile every csrc/*.cu into one shared library unless a build of the
-    same sources, headers and flags exists; returns its path. One nvcc per
-    source, all started together, then one link."""
-    key = build_key()
-    lib = _BUILD_DIR / f"kernels_{key}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{key}.{os.getpid()}"
-    jobs = []
-    for src in sorted(_CSRC.glob("*.cu")):
-        obj = _BUILD_DIR / f"{src.stem}_{tag}.o"
-        jobs.append((src, obj, subprocess.Popen(
-            [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    errors = []
-    for src, _, proc in jobs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed on {src.name}:\n{err}")
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    tmp = _BUILD_DIR / f"kernels_{tag}.tmp.so"
-    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
-                          capture_output=True, text=True)
-    for _, obj, _ in jobs:
-        obj.unlink(missing_ok=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{proc.stderr}")
-    os.replace(tmp, lib)
+@cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library with the entry points this module calls
+    declared: csrc/develop.cu's and csrc/division_check.cu's."""
+    lib = library.load()
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.develop_batch_launch.restype = i
+    lib.develop_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i, i, i, p, p, i, i,
+                                         p, i, i, i, i, i, i, p, p]
+    lib.division_check_constants.restype = i
+    lib.division_check_constants.argtypes = [p, p, p]
+    lib.division_check_levels.restype = i
+    lib.division_check_levels.argtypes = [p, i, i, p, p, p]
+    lib.division_check_count.restype = i
+    lib.division_check_count.argtypes = []
     return lib
-
-
-def _library():
-    """The kernels' library, built if needed, with every entry point bound
-    (the develop kernels', kernels/rotate.py's, kernels/suffix.py's and
-    kernels/variants.py's)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.develop_batch_launch.restype = i
-        lib.develop_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i, i, i, p, p, i, i,
-                                             p, i, i, i, i, i, i, p, p]
-        lib.develop_scaled_batch_launch.restype = i
-        lib.develop_scaled_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i,
-                                                    p, p, p, p, p, p, i, p, p, i, i,
-                                                    p, i, i, i, i, i, i, i, i, p, p]
-        lib.division_check_constants.restype = i
-        lib.division_check_constants.argtypes = [p, p, p]
-        lib.division_check_levels.restype = i
-        lib.division_check_levels.argtypes = [p, i, i, p, p, p]
-        lib.division_check_count.restype = i
-        f = ctypes.c_float
-        lib.rotate_resample_launch.restype = i
-        lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, i, p, p, i,
-                                               i, i, p, p]
-        lib.rotate_cfa_launch.restype = i
-        lib.rotate_cfa_launch.argtypes = [p, i, i, p, p, i, i, f, f, i, i, p, i, i, p, p, i,
-                                          i, i, p, p]
-        lib.suffix_launch.restype = i
-        lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, i,
-                                      p, p, p]
-        lib.develop_variant_launch.restype = i
-        lib.develop_variant_launch.argtypes = [p, i, i, i, p, i, i, i, i, i, p, i, i, p]
-        _lib = lib
-    return _lib
 
 
 def kernel_supported(plan) -> bool:
@@ -238,16 +150,6 @@ def calib_tables(plan):
         spline[3, :n_knots - 1] = p["spline_c2"]
         spline[4, :n_knots - 1] = p["spline_c3"]
     return scal, spline, n_knots
-
-
-def upload(array, device) -> torch.Tensor:
-    """A host array as a tensor on `device`. To a CUDA device it is copied
-    from pinned memory without blocking the host, ordered on the device's
-    current stream (torch keeps the pinned block until the copy is done)."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def _pattern(plan) -> np.ndarray:
@@ -314,7 +216,8 @@ def _cfa_tables(plan, device):
     hit = _CFA_TABLES.get(key)
     if hit is None:
         pattern = _pattern(plan)
-        hit = _CFA_TABLES[key] = (upload(pattern, device), upload(demosaic_phases(pattern), device))
+        hit = _CFA_TABLES[key] = (library.upload(pattern, device),
+                                  library.upload(demosaic_phases(pattern), device))
     return hit
 
 
@@ -325,7 +228,8 @@ def _device_tables(plan, device):
     hit = memo.get(device)
     if hit is None:
         scal, spline, n_knots = calib_tables(plan)
-        hit = memo[device] = (upload(scal, device), upload(spline, device), n_knots)
+        hit = memo[device] = (library.upload(scal, device), library.upload(spline, device),
+                              n_knots)
     scal, spline, n_knots = hit
     return (scal, spline, *_cfa_tables(plan, device), n_knots)
 
@@ -335,26 +239,9 @@ def batch_tables(plans, device):
     `device`: each image's own calibration, stacked, and the CFA tables the
     batch shares (the plans share their statics)."""
     tables = [calib_tables(p) for p in plans]
-    scal = upload(np.stack([t[0] for t in tables]), device)
-    spline = upload(np.stack([t[1] for t in tables]), device)
+    scal = library.upload(np.stack([t[0] for t in tables]), device)
+    spline = library.upload(np.stack([t[1] for t in tables]), device)
     return (scal, spline, *_cfa_tables(plans[0], device), tables[0][2])
-
-
-def apply_flips(out: torch.Tensor, orientation_flips) -> torch.Tensor:
-    """EXIF orientation on planar [..., 3, H, W] output: flip x, flip y,
-    then transpose (engine.py:243-252 of the JAX package). The flips copy
-    (torch has no negative strides); u16 flips through an int16 view, as
-    torch has no u16 flip."""
-    transpose, flip_x, flip_y = orientation_flips
-    dims = [d for d, on in ((-1, flip_x), (-2, flip_y)) if on]
-    if dims:
-        if out.dtype == torch.uint16:
-            out = out.view(torch.int16).flip(dims).view(torch.uint16)
-        else:
-            out = out.flip(dims)
-    if transpose:
-        out = out.transpose(-1, -2)
-    return out
 
 
 def compare(got, want) -> tuple[int, float]:
@@ -411,21 +298,21 @@ def _out(plan, batch: int, height: int, width: int, device) -> torch.Tensor:
 def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots,
             x_off: int | None = None, stage_limit: int = 4) -> torch.Tensor:
     """One launch over planes [B, H0, W0] -> unflipped [B, 3, H, W]. With
-    `x_off`, planes are width shards [B, H, w + 2] (`stage_sp`) of the crop's
-    columns x_off .. x_off + w - 1 -> [B, 3, H, w]. stage_limit: 4, or a
-    cut 1..3 of a whole-image launch."""
+    `x_off`, planes are width shards [B, H, w + 2] (`engine.stage_sp`) of
+    the crop's columns x_off .. x_off + w - 1 -> [B, 3, H, w]. stage_limit:
+    4, or a cut 1..3 of a whole-image launch."""
     smem = develop_smem_bytes(*pattern.shape, spline.shape[-1])
-    if smem > MAX_SMEM:
+    if smem > library.MAX_SMEM:
         raise ValueError(f"develop kernel: a block needs {smem} B of shared memory "
                          f"(CFA {tuple(pattern.shape)}, spline stride {spline.shape[-1]}), "
-                         f"more than {MAX_SMEM}")
+                         f"more than {library.MAX_SMEM}")
     if x_off is None:
         x_off, out_width, in_x0, crop_y = 0, plan.width, plan.crop_x, plan.crop_y
     else:
         out_width = planes.shape[-1] - 2
         in_x0, crop_y = 1 - x_off, 0
     out = _out(plan, planes.shape[0], plan.height, out_width, planes.device)
-    lib = _library()
+    lib = _lib()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
         rc = lib.develop_batch_launch(
@@ -460,7 +347,7 @@ def division_mismatches(pairs=(), f32_pairs=(), device="cuda") -> dict:
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"division_mismatches: unsupported device {device}")
-    lib = _library()
+    lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
     counts, checked = {}, {}
 
@@ -533,88 +420,13 @@ def develop_batch(plans, planes: torch.Tensor) -> torch.Tensor:
 # Counterpart of `_sp_local_develop` and `_sp_local_develop_batch`
 # (develop_pallas.py:680-721) and of their callers `develop_pallas_sp` and
 # the sp branch of BatchEngine._dispatch_pallas. An image's crop is cut
-# into column shards (`sp_shards`), one per device; a device may appear
-# more than once (two shards on one card). Each shard is staged with a
-# 1-column halo each side (`stage_sp`), the inner halos are copied from the
-# neighbouring shards on the devices (`exchange_halos`), each shard is one
-# launch of csrc/develop.cu at its global column offset, and the shards'
-# outputs are concatenated on the first device (`assemble`), where the
-# EXIF flips permute the whole image.
-
-def sp_shards(width: int, spatial: int) -> list[tuple[int, int]]:
-    """(x_off, w) of each column shard of a crop `width` wide split
-    `spatial` ways. Every shard but the last is the same whole number of
-    the kernel's 128-column tiles (the width over `spatial`, rounded up to a
-    tile) and the last takes the rest, so interior tiles and 4-pixel vector
-    stores stay in play: the counterpart of `sp_width_pad`
-    (develop_pallas.py:657-662), with nothing padded. A crop narrower than
-    spatial - 1 such shards gets fewer shards."""
-    if spatial < 1 or width < 1:
-        raise ValueError(f"sp_shards: width {width}, spatial {spatial}")
-    per = -(-width // (spatial * _TILE_W)) * _TILE_W
-    return [(x, min(per, width - x)) for x in range(0, width, per)]
-
-
-def stage_sp(plan, planes, spatial: int, pin: bool = False) -> list[torch.Tensor]:
-    """Host staging for the width-sharded develop (the counterpart of
-    `stage_plane_rows_np`, develop_pallas.py:665-677): the plan's crop of
-    `planes` cut into the shards of `sp_shards(plan.width, spatial)` by
-    `stage_columns`, with zero halo columns. `exchange_halos` fills the
-    inner halos on the devices; the outer ones stay zero and validity masks
-    them off."""
-    return stage_columns(plan, planes, sp_shards(plan.width, spatial), pin=pin)
-
-
-def stage_columns(plan, planes, spans, pin: bool = False,
-                  halos: bool = False) -> list[torch.Tensor]:
-    """The plan's crop of `planes` (one [H0, W0] host array, rgb [H0, W0,
-    3], or a sequence of B of them) as one host tensor per span (x0, w) of
-    crop columns: [H, w + 2] (or [B, H, w + 2]; rgb with a last axis of 3)
-    holding columns x0 .. x0 + w - 1 at 1..w. Columns 0 and w + 1 are a
-    halo: the crop's columns x0 - 1 and x0 + w where `halos` is set and
-    they lie inside the crop, else zero. pin: allocate in pinned memory,
-    for a copy to the card that does not block the host."""
-    single = getattr(planes, "ndim", None) == (3 if plan.mode == "rgb" else 2)
-    seq = [np.asarray(planes)] if single else [np.asarray(p) for p in planes]
-    dtype = torch.from_numpy(seq[0][:0]).dtype
-    h, y0 = plan.height, plan.crop_y
-    shards = []
-    for x_off, w in spans:
-        buf = torch.empty((len(seq), h, w + 2, *seq[0].shape[2:]), dtype=dtype, pin_memory=pin)
-        host = buf.numpy()
-        lo = max(x_off - 1, 0) if halos else x_off
-        hi = min(x_off + w + 1, plan.width) if halos else x_off + w
-        host[:, :, :lo - x_off + 1] = 0
-        host[:, :, hi - x_off + 1:] = 0
-        for i, p in enumerate(seq):
-            host[i, :, lo - x_off + 1:hi - x_off + 1] = p[y0:y0 + h,
-                                                          plan.crop_x + lo:plan.crop_x + hi]
-        shards.append(buf[0] if single else buf)
-    return shards
-
-
-def exchange_halos(shards) -> None:
-    """Fill the inner halo columns of staged shards ([.., H, w + 2], in
-    column order) in place: shard i + 1's column 0 takes shard i's last own
-    column, shard i's last column takes shard i + 1's first own column.
-    Between two cards each is a peer-to-peer copy that torch orders on both
-    devices' current streams with CUDA events (a two-way barrier), never
-    with a host synchronize; on one card it is a copy on its stream."""
-    for left, right in zip(shards, shards[1:]):
-        right[..., 0].copy_(left[..., -2], non_blocking=True)
-        left[..., -1].copy_(right[..., 1], non_blocking=True)
-
-
-def assemble(outs, device) -> torch.Tensor:
-    """The shards' outputs [.., 3, H, w] concatenated along the width on
-    `device` (copies from other cards ordered by events, as above)."""
-    return torch.cat([o.to(device, non_blocking=True) for o in outs], dim=-1)
-
-
-def _x_offsets(shards) -> list[int]:
-    """The global column offset of each staged shard [.., H, w + 2]."""
-    return np.cumsum([0] + [s.shape[-1] - 2 for s in shards[:-1]]).tolist()
-
+# into column shards (`engine.sp_shards`), one per device; a device may
+# appear more than once (two shards on one card). Each shard is staged with
+# a 1-column halo each side (`engine.stage_sp`), the inner halos are copied
+# from the neighbouring shards on the devices (`engine.exchange_halos`),
+# each shard is one launch of csrc/develop.cu at its global column offset,
+# and the shards' outputs are concatenated on the first device
+# (`engine.assemble`), where the EXIF flips permute the whole image.
 
 def _place(plan, shards, devices, batch: bool) -> tuple[list, list[int]]:
     """The shards on their devices and their column offsets; raises unless
@@ -642,40 +454,6 @@ def _place(plan, shards, devices, batch: bool) -> tuple[list, list[int]]:
     return placed, _x_offsets(placed)
 
 
-def develop_shard(plan, local: torch.Tensor, x_off: int, numerics: str = "direct",
-                  out_cols=None) -> torch.Tensor:
-    """One shard of raw counts developed in plain PyTorch with the whole
-    image's validity, CFA colour and resample windows -> unflipped
-    [3, H', n]. `local` ([H, w + 2], rgb [H, w + 2, 3]; `stage_columns`)
-    holds the crop's columns x_off .. x_off + w - 1 at 1..w and a 1-column
-    halo each side, which only the stencil demosaic reads. A full-size
-    plan develops those w columns; a resize plan ('scaled', 'fulldown',
-    'plaindown') its output columns out_cols = (o0, o1), whose source
-    windows the shard must hold (`scaling.source_span`)."""
-    p = plan.params
-    local = local.float()
-    if plan.mode == "rgb":
-        rgbe = [levels(local[:, 1:-1, c], p["mins"][c], p["ranges"][c]) for c in range(3)]
-        rgbe.append(torch.zeros_like(rgbe[0]))
-    else:
-        v = levels(local, p["mins"][0], p["ranges"][0])
-        if plan.mode == "mono":
-            c = v[:, 1:-1].contiguous()
-            rgbe = [c, c, c, torch.zeros_like(c)]
-        elif plan.dem_path == "scaled":
-            rgbe = [v[:, 1:-1]]
-        else:
-            rgbe = stencil_demosaic_shard(v, plan.cfa_name, plan.height, plan.width, x_off)
-    if plan.dem_path != "full":
-        g = scale_down_axes(plan.width, plan.height, plan.dem_w, plan.dem_h)
-        cfa = CFA(plan.cfa_name) if plan.dem_path == "scaled" else None
-        rgbe = list(resample_aligned(torch.stack(rgbe), g, plan.width, plan.height, 4, cfa,
-                                     out_cols, x_off))
-    return finish_planes(rgbe, p, out_bits=plan.out_bits, linear=plan.linear,
-                         apply_curve=plan.apply_curve, n_knots=plan.n_knots,
-                         orientation_flips=(False, False, False), numerics=numerics)
-
-
 def develop_sp_plain(plan, plane_shards) -> torch.Tensor:
     """`develop_sp` in plain PyTorch on the shards' devices: the halos
     exchanged, each shard developed from its own columns
@@ -701,12 +479,12 @@ def develop_sp_batch_plain(plans, planes_shards) -> torch.Tensor:
 
 def develop_sp(plan, plane_shards, devices) -> torch.Tensor:
     """Develop one image width-sharded over `devices` (shard i on
-    devices[i]; a device may repeat): `plane_shards` are `stage_sp`'s, on
-    the host or already on their devices. The halos are exchanged between
-    the devices, each shard is one launch of the develop kernel at its
-    column offset (SP_LAUNCHES counts them), and the quantized planar
-    [3, H', W'] output is assembled and flipped on devices[0]. CPU devices
-    take the plain version."""
+    devices[i]; a device may repeat): `plane_shards` are
+    `engine.stage_sp`'s, on the host or already on their devices. The
+    halos are exchanged between the devices, each shard is one launch of
+    the develop kernel at its column offset (SP_LAUNCHES counts them), and
+    the quantized planar [3, H', W'] output is assembled and flipped on
+    devices[0]. CPU devices take the plain version."""
     shards, x_offs = _place(plan, plane_shards, devices, batch=False)
     if shards[0].device.type == "cpu":
         return develop_sp_plain(plan, shards)
@@ -722,7 +500,7 @@ def develop_sp(plan, plane_shards, devices) -> torch.Tensor:
 
 def develop_sp_batch(plans, planes_shards, devices) -> torch.Tensor:
     """Develop B images of one shape class width-sharded over `devices`,
-    plans[i] calibrating image i: `planes_shards` are `stage_sp`'s
+    plans[i] calibrating image i: `planes_shards` are `engine.stage_sp`'s
     [B, H, w + 2] shards. One launch per shard develops its columns of all
     B images (blockIdx.z = image) -> quantized planar [B, 3, H', W'] on
     devices[0]. CPU devices take the plain version."""

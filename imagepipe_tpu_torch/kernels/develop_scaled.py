@@ -39,8 +39,9 @@ is shared, the calibration each image's own. It replaces
   those of `develop_scaled_batch`; `develop_scaled(..., stage_limit=k)`
   with a cut k of 1..3 (the JAX function's profiling knob: the back end
   stopped after the demosaic, Lab or the spline, `engine.finish_planes`)
-  counts in `CUT_LAUNCHES[k]` instead. The library is built and bound by
-  kernels/develop.py, with the full-size kernel.
+  counts in `CUT_LAUNCHES[k]` instead. The library is built by
+  kernels/library.py, with every other kernel; this module declares the
+  signature of its entry point.
 
 Numerics: with one lane per pixel the RGBE sums equal the plain version's
 term for term (same order, rounded products and adds); split across lanes
@@ -51,15 +52,19 @@ kernels/develop.py: max |diff| <= 1 LSB on fewer than 2% of values.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
+from functools import cache
 
 import numpy as np
 import torch
 
 from ..raw import CFA
 from ..engine import _develop_one, check_stage_limit
+from ..ops.transform import apply_flips
 from ..scaling import aligned_axes
 from . import develop as kdev
+from . import library
 
 __all__ = ["develop_scaled", "develop_scaled_plain", "develop_scaled_batch",
            "develop_scaled_batch_plain", "scaled_supported", "scaled_geometry",
@@ -78,6 +83,19 @@ _f32 = np.float32
 
 # Threads per block of csrc/develop_scaled.cu.
 THREADS = 256
+
+
+@cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library with csrc/develop_scaled.cu's entry point
+    declared."""
+    lib = library.load()
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.develop_scaled_batch_launch.restype = i
+    lib.develop_scaled_batch_launch.argtypes = [p, i, i, ll, ll, i, i, i, i,
+                                                p, p, p, p, p, p, i, p, p, i, i,
+                                                p, i, i, i, i, i, i, i, i, p, p]
+    return lib
 
 
 def scaled_supported(plan) -> bool:
@@ -118,7 +136,7 @@ def scaled_geometry(plan, device="cpu") -> dict:
     hit = getattr(plan, "_scaled_geometry", None)
     if hit is not None and hit[0] == device:
         return hit[1]
-    tables = {k: kdev.upload(v, device) for k, v in _host_geometry(plan).items()}
+    tables = {k: library.upload(v, device) for k, v in _host_geometry(plan).items()}
     plan._scaled_geometry = (device, tables)
     return tables
 
@@ -171,9 +189,9 @@ def scaled_plan(plan, spline_stride: int) -> ScaledLaunchPlan:
     outs = THREADS // sx
     tc = min(32, outs)
     smem = scaled_smem_bytes(tc, outs // tc, kx, ph, pw, spline_stride)
-    if smem > kdev.MAX_SMEM:
+    if smem > library.MAX_SMEM:
         raise ValueError(f"develop_scaled kernel: windows of {kx} columns need {smem} B of "
-                         f"shared memory per block, more than {kdev.MAX_SMEM}")
+                         f"shared memory per block, more than {library.MAX_SMEM}")
     launch = ScaledLaunchPlan(sx, tc, outs // tc, kx, smem)
     plan._scaled_launch_plan = (spline_stride, launch)
     return launch
@@ -248,7 +266,7 @@ def _launch(plan, planes: torch.Tensor, scal, spline, pattern, phases, n_knots,
     g = scaled_geometry(plan, planes.device)
     lp = scaled_plan(plan, spline.shape[-1])
     out = kdev._out(plan, planes.shape[0], plan.dem_h, plan.dem_w, planes.device)
-    lib = kdev._library()
+    lib = _lib()
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
         rc = lib.develop_scaled_batch_launch(
@@ -287,7 +305,7 @@ def develop_scaled(plan, plane: torch.Tensor, sp: ScaledPlan | None = None,
         LAUNCHES += 1
     else:
         CUT_LAUNCHES[stage_limit] += 1
-    return kdev.apply_flips(out[0], plan.orientation_flips)
+    return apply_flips(out[0], plan.orientation_flips)
 
 
 def develop_scaled_batch(plans, planes: torch.Tensor) -> torch.Tensor:
@@ -301,4 +319,4 @@ def develop_scaled_batch(plans, planes: torch.Tensor) -> torch.Tensor:
     out = _launch(plans[0], planes, *kdev.batch_tables(plans, planes.device))
     global BATCH_LAUNCHES
     BATCH_LAUNCHES += 1
-    return kdev.apply_flips(out, plans[0].orientation_flips)
+    return apply_flips(out, plans[0].orientation_flips)

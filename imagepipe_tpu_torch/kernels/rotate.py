@@ -41,8 +41,9 @@ launch of csrc/rotate.cu, which replaces the Pallas `_rotate_kernel`.
   for a given plan.
 * `LAUNCHES` counts the kernel's launches, `DIRECT_LAUNCHES` those on the
   direct route, `CFA_LAUNCHES` the CFA route's and `CFA_DIRECT_LAUNCHES`
-  those of its direct form. The library is built and bound by
-  kernels/develop.py, with the develop kernels.
+  those of its direct form. The library is built by kernels/library.py,
+  with every other kernel; this module declares the signatures of its
+  entry points.
 
 Numerics: every operation of the kernel is an explicit round-to-nearest
 intrinsic in the plain version's order, so the two agree bit for bit
@@ -54,15 +55,17 @@ rotate.cu's header gives the argument.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
+from functools import cache
 
 import numpy as np
 import torch
 
 from ..raw import PATTERN_TILE
 from ..scaling import RotatedGeometry, _transform_rotated, rotated_geometry, sat_floor_np
-from . import develop as kdev
+from . import library
 
 __all__ = ["rotate_resample_planar", "rotate_resample_plain", "rotate_resample_cfa",
            "rotate_resample_cfa_plain", "rotate_tile_plan", "tile_boxes", "RotateTilePlan",
@@ -99,7 +102,21 @@ CFA_TILE_COLS = 3 * TILE_W
 # walked), a probe that only scripts/time_develop_kernels.py launches.
 CFA_ROUTES = {"direct": 0, "staged": 1, "stores": 2}
 # Most shared memory a staged block may use: all a Hopper block can have.
-STAGE_SMEM_BYTES = kdev.MAX_SMEM
+STAGE_SMEM_BYTES = library.MAX_SMEM
+
+
+@cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library with csrc/rotate.cu's entry points declared."""
+    lib = library.load()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rotate_resample_launch.restype = i
+    lib.rotate_resample_launch.argtypes = [p, i, i, i, p, p, i, i, f, f, i, i, i, p, p, i,
+                                           i, i, p, p]
+    lib.rotate_cfa_launch.restype = i
+    lib.rotate_cfa_launch.argtypes = [p, i, i, p, p, i, i, f, f, i, i, p, i, i, p, p, i,
+                                      i, i, p, p]
+    return lib
 
 
 @dataclass(frozen=True)
@@ -244,10 +261,10 @@ def rotate_resample_planar(src: torch.Tensor, width, height, topleft, topright,
     parts = [g.rows.ravel(), g.cols.ravel()]
     if staged:
         parts += [plan.row_bands.ravel(), plan.col_bands.ravel()]
-    tables = kdev.upload(np.concatenate(parts), src.device)
+    tables = library.upload(np.concatenate(parts), src.device)
     offsets = np.cumsum([0] + [p.size for p in parts]) * 4 + tables.data_ptr()
     out = torch.empty((components, nheight, nwidth), dtype=torch.float32, device=src.device)
-    lib = kdev._library()
+    lib = _lib()
     stream = torch.cuda.current_stream(src.device).cuda_stream
     vec4 = width % 4 == 0 and src.data_ptr() % 16 == 0
     with torch.cuda.device(src.device):
@@ -303,10 +320,10 @@ def cfa_launch(src: torch.Tensor, g: RotatedGeometry, plan: RotateTilePlan, cfa)
     if staged:
         parts += [plan.row_bands.ravel(), plan.col_bands.ravel()]
     floats = np.concatenate(parts)
-    tables = kdev.upload(np.concatenate([floats.view(np.uint8), tile.ravel()]), src.device)
+    tables = library.upload(np.concatenate([floats.view(np.uint8), tile.ravel()]), src.device)
     offsets = np.cumsum([0] + [p.size for p in parts]) * 4 + tables.data_ptr()
     out = torch.empty((4, nheight, nwidth), dtype=torch.float32, device=src.device)
-    lib = kdev._library()
+    lib = _lib()
     stream = torch.cuda.current_stream(src.device).cuda_stream
     vec4 = width % 4 == 0 and src.data_ptr() % 16 == 0
     with torch.cuda.device(src.device):

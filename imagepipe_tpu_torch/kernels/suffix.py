@@ -26,8 +26,9 @@ and the final quantize, in one launch of csrc/suffix.cu, and returns
   copies (`TransformLUT._table`, made once per device), not uploaded per
   launch.
 * `LAUNCHES` counts the kernel's launches in 'direct' numerics,
-  `LUT_LAUNCHES` those in 'lut'. The library is built and bound by
-  kernels/develop.py, with the other kernels.
+  `LUT_LAUNCHES` those in 'lut'. The library is built by
+  kernels/library.py, with every other kernel; this module declares the
+  signature of its entry point.
 
 Numerics: every operation of the kernel is an explicit round-to-nearest
 intrinsic in the plain version's order, with torch's NaN rules, so on the
@@ -37,12 +38,16 @@ card the two agree bit for bit in either numerics (chip_smoke.py phase
 
 from __future__ import annotations
 
+import ctypes
+from functools import cache
+
 import numpy as np
 import torch
 
 from .. import color as cc
+from ..ops.transform import apply_flips
 from ..spline import eval_spline_arrays
-from . import develop as kdev
+from . import library
 
 __all__ = ["run_suffix", "suffix_plain", "pack_params", "check_segment", "fuses", "STAGES",
            "LAUNCHES", "LUT_LAUNCHES"]
@@ -57,6 +62,17 @@ STAGES = ("to_lab", "basecurve", "from_lab", "gamma", "transform")
 
 # The kernel indexes a frame's pixels with 32 bits.
 _MAX_PIXELS = (1 << 31) - 1
+
+
+@cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library with csrc/suffix.cu's entry point declared."""
+    lib = library.load()
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.suffix_launch.restype = i
+    lib.suffix_launch.argtypes = [p, ll, ll, i, i, i, p, i, i, i, p, p, p, p, p, p, i, i,
+                                  p, p, p]
+    return lib
 
 
 def check_segment(data: torch.Tensor, stages, params, quant, keep) -> None:
@@ -101,7 +117,7 @@ def _stage_plain(stage: str, x: torch.Tensor, p, numerics: str) -> torch.Tensor:
         return torch.stack(cc.lab_to_rgb_planar(p[0], (x[0], x[1], x[2])))
     if stage == "gamma":
         return cc.apply_srgb_gamma(torch.clamp(x, 0.0, 1.0), numerics)
-    return kdev.apply_flips(x, p)
+    return apply_flips(x, p)
 
 
 def fuses(device) -> bool:
@@ -173,7 +189,7 @@ def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None,
                         device=data.device)
     if height * width:
         table, n_knots = pack_params(stages, params)
-        table = kdev.upload(table, data.device)
+        table = library.upload(table, data.device)
         ptr = dict.fromkeys(STAGES)
         for s, o in zip(stages, outs):
             ptr[s] = None if o is None else o.data_ptr()
@@ -181,7 +197,7 @@ def run_suffix(data: torch.Tensor, stages, params, quant=None, keep=None,
         lut = numerics == "lut"
         tables = [t._table(data.device).data_ptr() if lut else None
                   for t in (cc.XYZ_LAB_TRANSFORM, cc.SRGB_GAMMA_TRANSFORM)]
-        lib = kdev._library()
+        lib = _lib()
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream(data.device).cuda_stream
             rc = lib.suffix_launch(

@@ -33,8 +33,8 @@ the calibration as the experiments pack it (`variant_scal`).
   raises; nothing falls back.
 * `VARIANT_LAUNCHES` counts the launches by form: "A" and "B";
   `ROUTE_LAUNCHES` the launches that load the plane by their load route.
-  The library is built and bound by kernels/develop.py, with the other
-  kernels.
+  The library is built by kernels/library.py, with every other kernel;
+  this module declares the signature of its entry point.
 * `variant_plan` is the launch's plan, chosen from the shape before it: a
   block a tile of 128 columns x `tile_rows` rows (`TILE_ROWS`, or
   `STREAM_TILE_ROWS` for the rungs that only stream), a thread
@@ -51,12 +51,16 @@ fewer than 2% of values differing) and float32 outputs to max |diff| <=
 
 from __future__ import annotations
 
+import ctypes
+from functools import cache
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..color import _div
 from . import develop as kdev
+from . import library
 
 __all__ = ["run_variant", "variant_plain", "variant_scal", "check_variant", "compare_variant",
            "variant_route", "variant_plan", "VARIANTS", "FORMS", "ROUTES", "TILE_COLS",
@@ -94,6 +98,17 @@ _LAB_E = float(np.float32(216.0) / np.float32(24389.0))
 _LAB_K = float(np.float32(24389.0) / np.float32(27.0))
 _LAB_KE = float(np.float32(_LAB_K) * np.float32(_LAB_E))
 _XW, _YW, _ZW = 0.95047, 1.0, 1.08883
+
+
+@cache
+def _lib() -> ctypes.CDLL:
+    """The kernels' library with csrc/develop_variants.cu's entry point
+    declared."""
+    lib = library.load()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.develop_variant_launch.restype = i
+    lib.develop_variant_launch.argtypes = [p, i, i, i, p, i, i, i, i, i, p, i, i, p]
+    return lib
 
 
 def variant_scal(plan) -> np.ndarray:
@@ -171,8 +186,8 @@ def _scal(scal, device) -> torch.Tensor:
     if (torch.is_tensor(scal) and scal.device == device and scal.dtype == torch.float32
             and scal.is_contiguous()):
         return scal
-    return kdev.upload(np.asarray(scal.cpu() if torch.is_tensor(scal) else scal, np.float32),
-                       device)
+    return library.upload(np.asarray(scal.cpu() if torch.is_tensor(scal) else scal, np.float32),
+                          device)
 
 
 def _quantize(o: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -344,7 +359,7 @@ def run_variant(plane: torch.Tensor, scal, *, height: int, width: int, variant: 
                         tile_rows)
     out = torch.empty((3, height, width), dtype=out_dtype, device=plane.device)
     tile_h, tile_w = (int(t) for t in tile) if tile is not None else (0, 0)
-    lib = kdev._library()
+    lib = _lib()
     with torch.cuda.device(plane.device):
         stream = torch.cuda.current_stream(plane.device).cuda_stream
         rc = lib.develop_variant_launch(

@@ -2,21 +2,23 @@
 
 Counterpart of `imagepipe_tpu/ops/transform.py` (transform.rs): the EXIF
 orientation as a rotation plus user flips, composed into (transpose,
-flip_x, flip_y). The staged run applies them to the planar buffer as the
-develop applies them to its output (kernels.develop.apply_flips: flip
-copies, then a transposed view).
+flip_x, flip_y). `apply_flips` applies them to a planar buffer or output:
+flip copies, then a transposed view. The staged run, the eager engine and
+the kernels' wrappers all flip with it.
 """
 
 from __future__ import annotations
 
 import enum
 
+import torch
+
 from .base import ImageOp
 from .. import hasher
 from ..buffer import OpBuffer
 from ..raw import Orientation
 
-__all__ = ["Rotation", "OpTransform", "rotate_buffer"]
+__all__ = ["Rotation", "OpTransform", "rotate_buffer", "apply_flips"]
 
 
 class Rotation(enum.Enum):
@@ -48,11 +50,26 @@ _FROM_EXIF = {
 }
 
 
+def apply_flips(out: torch.Tensor, orientation_flips) -> torch.Tensor:
+    """EXIF orientation on planar [..., 3, H, W] output: flip x, flip y,
+    then transpose (engine.py:243-252 of the JAX package). The flips copy
+    (torch has no negative strides); u16 flips through an int16 view, as
+    torch has no u16 flip."""
+    transpose, flip_x, flip_y = orientation_flips
+    dims = [d for d, on in ((-1, flip_x), (-2, flip_y)) if on]
+    if dims:
+        if out.dtype == torch.uint16:
+            out = out.view(torch.int16).flip(dims).view(torch.uint16)
+        else:
+            out = out.flip(dims)
+    if transpose:
+        out = out.transpose(-1, -2)
+    return out
+
+
 def rotate_buffer(buf: OpBuffer, orientation: Orientation) -> OpBuffer:
     """Apply an EXIF orientation (transform.rs:87-144) to a 3-channel
     buffer: out[r, c] = in[...] with flip_x, flip_y, then the transpose."""
-    from ..kernels.develop import apply_flips
-
     assert buf.colors == 3
     if orientation in (Orientation.Normal, Orientation.Unknown):
         return buf

@@ -35,25 +35,24 @@ Decode/compute overlap: `develop_files` dispatches a bucket the moment it
 fills while the pool keeps decoding. Dispatch does not wait for the card:
 the chunk is staged into a pinned host buffer [B, H0, W0], copied to the
 card with `non_blocking=True` on the device's current stream, developed,
-and each image of its output copied back with `non_blocking=True` into a
-block of its own from torch's caching pinned host allocator, contiguous
-[3, H', W'] as on the CPU; a CUDA event marks the end. `_collect` waits on
-the oldest event and makes each result a view of its image's block, with
-no host copy; it leaves at most `inflight_batches` chunks unfetched, so the
-engine's own pinned staging and device memory is bounded by that and not
-by the length of the file list. A result is the only reference to its
-block: no result aliases another, a result of another pass, or a buffer
-the engine reuses, and the block goes back to the pool when the caller
-drops the result. A block is rounded up to a power of two (128 MB for a
-72 MB 24 MP 8-bit output, 4 MB for a ~2 MB thumbnail), and the blocks
-that live results hold, over every engine of the process, stay within
-`PINNED_RESULTS_BYTES`: past it a result is a copy in ordinary memory, as
-on the CPU, and its block goes straight back to the pool. So a caller may
-keep any number of results without locking more host memory than that; a
-caller with a long list still passes it in parts, so that it holds no more
-results than it writes at once. On the CPU each result is a copy of its
-image out of the chunk's output. Only the calling thread touches CUDA;
-decode threads return numpy.
+and each image of its output copied back without blocking into a
+contiguous [3, H', W'] block of its own from torch's caching pinned host
+allocator, as on the CPU (`engine.start_host_copy`, which every CUDA host
+output goes through); a CUDA event marks the end. `_collect` waits on the
+oldest event and makes each result a view of its image's block, with no
+host copy (`engine.host_results`); it leaves at most `inflight_batches`
+chunks unfetched, so the engine's own pinned staging and device memory is
+bounded by that and not by the length of the file list. A result is the
+only reference to its block: no result aliases another, a result of
+another pass, or a buffer the engine reuses, and the block goes back to
+the pool when the caller drops the result. The blocks that live results
+hold, over every engine and pipeline of the process, stay within
+`engine.PINNED_RESULTS_BYTES`: past it a result is a copy in ordinary
+memory, as on the CPU. So a caller may keep any number of results without
+locking more host memory than that; a caller with a long list still
+passes it in parts, so that it holds no more results than it writes at
+once. On the CPU each result is a copy of its image out of the chunk's
+output. Only the calling thread touches CUDA; decode threads return numpy.
 """
 
 from __future__ import annotations
@@ -61,8 +60,6 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import os
-import threading
-import weakref
 from collections import defaultdict
 
 import numpy as np
@@ -71,8 +68,9 @@ import torch
 from .. import color as cc
 from .. import profiling
 from ..decode import decode_file
-from ..engine import (develop_batch_perimage, develop_batch_perimage_sp, make_develop_plan,
-                      normalize_plane_np, stage_perimage_sp)
+from ..engine import (develop_batch_perimage, develop_batch_perimage_sp, host_results,
+                      make_develop_plan, normalize_plane_np, sp_shards, stage_perimage_sp,
+                      stage_sp, start_host_copy)
 from ..kernels import develop as kdev
 from ..kernels import develop_scaled as kds
 from ..pipeline import Pipeline, default_device
@@ -80,40 +78,6 @@ from ..sources import ImageSource
 
 __all__ = ["BatchEngine", "BatchError", "default_decode_workers", "make_batch_mesh",
            "shard_batch"]
-
-
-# The pinned bytes, in the pool's power-of-two blocks, that live results of
-# every engine of the process may hold at once: 64 results of 24 MP at 8
-# bits. Past it a result is a copy in ordinary memory, so what results keep
-# locked stays bounded whatever a caller keeps.
-PINNED_RESULTS_BYTES = 8 << 30
-# Reentrant: a collection that frees a result may run inside the lock.
-_pinned_lock = threading.RLock()
-_pinned_held = 0
-
-
-def _release_pinned(size: int) -> None:
-    global _pinned_held
-    with _pinned_lock:
-        _pinned_held -= size
-
-
-def _result_of(block: torch.Tensor) -> np.ndarray:
-    """The [H', W', 3] result of an image's [3, H', W'] block: a view of the
-    block while the blocks that results hold stay within
-    `PINNED_RESULTS_BYTES` (the view's base array carries the block's share
-    until it is collected), else a copy in ordinary memory."""
-    global _pinned_held
-    planar = block.numpy()
-    size = 1 << max(planar.nbytes - 1, 0).bit_length()
-    with _pinned_lock:
-        view = _pinned_held + size <= PINNED_RESULTS_BYTES
-        if view:
-            _pinned_held += size
-    if not view:
-        return np.moveaxis(planar.copy(), -3, -1)
-    weakref.finalize(planar, _release_pinned, size)
-    return np.moveaxis(planar, -3, -1)
 
 
 class BatchError:
@@ -167,7 +131,7 @@ def shard_batch(rows, planes) -> list[list[torch.Tensor]]:
     over a grid of devices (`make_batch_mesh`), the counterpart of the JAX
     package's `shard_batch` (parallel/batch.py:68-71): the batch in
     contiguous blocks of ceil(B / len(rows)) images over the rows, and W
-    in the column shards of `kdev.sp_shards(W, spatial)` over each row's
+    in the column shards of `engine.sp_shards(W, spatial)` over each row's
     devices, with no halo. Returns [row][shard] tensors, each contiguous
     on its device; a row past the batch's end holds empty blocks, and a W
     narrower than the shards gives a row fewer pieces than devices."""
@@ -176,7 +140,7 @@ def shard_batch(rows, planes) -> list[list[torch.Tensor]]:
         raise ValueError(f"shard_batch: planes {tuple(planes.shape)} over {len(rows)} rows; "
                          f"want [B, H, W] or [B, H, W, C] over one row or more")
     block = -(-planes.shape[0] // len(rows))
-    cols = kdev.sp_shards(planes.shape[2], len(rows[0]))
+    cols = sp_shards(planes.shape[2], len(rows[0]))
     return [[planes[r * block:(r + 1) * block, :, x:x + w].to(d).contiguous()
              for (x, w), d in zip(cols, row)]
             for r, row in enumerate(rows)]
@@ -297,12 +261,12 @@ class BatchEngine:
 
     def _stage(self, chunk, pin: bool):
         """The chunk's normalized sensor planes on the host: stacked
-        [B, H0, W0], or cut into its row's width shards (`kdev.stage_sp`
-        for the shard launches, `stage_perimage_sp` for the eager engine)."""
+        [B, H0, W0], or cut into its row's width shards (`stage_sp` for
+        the shard launches, `stage_perimage_sp` for the eager engine)."""
         plan = chunk[0][2]
         planes = [normalize_plane_np(p, src.raw.data) for _, src, p in chunk]
         if self._sharded(plan):
-            stage = kdev.stage_sp if self._use_kernel(plan) else stage_perimage_sp
+            stage = stage_sp if self._use_kernel(plan) else stage_perimage_sp
             return stage(plan, planes, self.spatial, pin=pin)
         dtype = torch.from_numpy(planes[0][:0]).dtype
         buf = torch.empty((len(chunk), *planes[0].shape), dtype=dtype, pin_memory=pin)
@@ -314,11 +278,9 @@ class BatchEngine:
     def _dispatch_chunk(self, chunk):
         """Stage one bucket chunk and enqueue its develop on the next row.
         Returns (output on the host, event or None). On the CPU the output
-        is the chunk's [B, 3, H', W'] tensor. On CUDA it is a list of one
-        contiguous pinned block per image, each from torch's caching pinned
-        host allocator, complete once the event has fired. While a profiler
-        records, the chunk counts `batch.pinned` (its images) and
-        `batch.pinned_grew` (the blocks the pool had to allocate for them)."""
+        is the chunk's [B, 3, H', W'] tensor. On CUDA it is
+        `engine.start_host_copy`'s list of one contiguous pinned block per
+        image, complete once the event has fired."""
         row = self.rows[self._next_row % len(self.rows)]
         self._next_row += 1
         device = row[0]
@@ -333,19 +295,7 @@ class BatchEngine:
                 with profiling.span("batch.stage", into=self.timings, key="stage"):
                     staged = self._stage(chunk, pin=True)
                 with profiling.span("batch.dispatch", into=self.timings, key="dispatch"):
-                    dev_out = self._develop(plans, staged, row)
-                    grew = (torch.cuda.host_memory_stats()["num_host_alloc"]
-                            if profiling.recording() else None)
-                    # A non-blocking copy to the CPU takes its block from the
-                    # caching pinned host allocator.
-                    out = [img.to("cpu", non_blocking=True, memory_format=torch.contiguous_format)
-                           for img in dev_out]
-                    done = torch.cuda.Event()
-                    done.record()
-                    if grew is not None:
-                        profiling.count("batch.pinned", len(out))
-                        profiling.count("batch.pinned_grew",
-                                        torch.cuda.host_memory_stats()["num_host_alloc"] - grew)
+                    out, done = start_host_copy(self._develop(plans, staged, row))
         self._note("dispatch", len(chunk))
         return out, done
 
@@ -356,11 +306,9 @@ class BatchEngine:
         `planar_to_hwc` returns: a contiguous HWC copy is a strided
         transpose, several times slower than the plain copy. On CUDA that
         memory is the image's pooled pinned block from `_dispatch_chunk`,
-        with no host copy: the result holds the block (a power of two, 128
-        MB for a 72 MB output) until the caller drops it, while the blocks
-        that results hold stay within `PINNED_RESULTS_BYTES`; past it, and
-        on the CPU, it is a copy. The span `batch.scatter` is the making of
-        the results."""
+        with no host copy, within `engine.PINNED_RESULTS_BYTES`
+        (`engine.host_results`); past it, and on the CPU, it is a copy. The
+        span `batch.scatter` is the making of the results."""
         while len(inflight) > keep:
             chunk, (out, done) = inflight.pop(0)
             with profiling.span("batch.wait", into=self.timings, key="wait"):
@@ -368,11 +316,11 @@ class BatchEngine:
                     done.synchronize()
             with profiling.span("batch.scatter", into=self.timings, key="scatter"):
                 if done is not None:
-                    for (idx, _, _), block in zip(chunk, out):
-                        results[idx] = _result_of(block)
+                    images = host_results(out)
                 else:
-                    for (idx, _, _), img in zip(chunk, out.numpy()):
-                        results[idx] = np.moveaxis(img.copy(), 0, -1)
+                    images = [np.moveaxis(img.copy(), 0, -1) for img in out.numpy()]
+                for (idx, _, _), img in zip(chunk, images):
+                    results[idx] = img
             self._note("collected", len(chunk))
 
     def _plan_timed(self, src):

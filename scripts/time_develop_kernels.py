@@ -14,9 +14,10 @@ other version's `imagepipe_tpu_torch/` into a directory that .gitignore
 lists and run this script with `PYTHONPATH=<that directory>`, in turns with
 the tree's own (`PYTHONPATH=.`). The script uses only the kernels' public
 wrappers (`develop`, `develop_batch`, `develop_scaled`,
-`develop_scaled_batch`, `rotate_resample_planar`) and
-`kernels.develop.build`, which every version of the port has since the
-rotate kernel landed. `--kernels rotate` times the rotate kernel alone;
+`develop_scaled_batch`, `rotate_resample_planar`) and the library's
+`build` (`kernels.library.build`, or `kernels.develop.build` in versions
+from before kernels/library.py), which every version of the port has
+since the rotate kernel landed. `--kernels rotate` times the rotate kernel alone;
 `--rotate-tile-h` times it again at each listed tile height of its staged
 route (`kernels.rotate.TILE_H`, where the version has one). `--kernels
 suffix` times the fused-suffix kernel (`kernels.suffix.run_suffix`, in
@@ -98,6 +99,11 @@ from imagepipe_tpu_torch.engine import make_develop_plan
 from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
 from imagepipe_tpu_torch.sources import ImageSource
+
+try:
+    from imagepipe_tpu_torch.kernels import library as klib
+except ImportError:     # a version from before kernels/library.py: develop.py built
+    klib = kdev
 
 BAYER = (6000, 4000)
 XTRANS = (6240, 4168)
@@ -622,7 +628,7 @@ def ptxas_report(csrc: Path, build_dir: Path, sources=PTXAS_SOURCES) -> dict:
     `nvcc -Xptxas -v` on each kernel source of `sources` (by default the
     develop kernels', rotate.cu, suffix.cu and develop_variants.cu),
     compiled with the package's own flags (one nvcc each, in parallel)."""
-    flags = [f for f in kdev._NVCC_FLAGS]
+    flags = [f for f in klib._NVCC_FLAGS]
     build_dir.mkdir(exist_ok=True)
     procs = []
     for name in sources:
@@ -699,7 +705,7 @@ def main() -> int:
     print(the_card)
     pkg = Path(kdev.__file__).resolve().parent.parent
     t = time.perf_counter()
-    lib = kdev.build()
+    lib = klib.build()
     print(f"{args.label}: {pkg}, built {lib.name} in {time.perf_counter() - t:.1f} s")
     result = {"label": args.label, "card": the_card, "package": str(pkg),
               "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from imagepipe_tpu_torch import engine as tengine
 from imagepipe_tpu_torch import raw as traw
 from imagepipe_tpu_torch.dng import write_dng
 from imagepipe_tpu_torch.parallel import BatchEngine
@@ -109,7 +110,9 @@ def main(argv=None) -> int:
     line = dict(label=args.label, files=args.files, slice=args.slice, size=args.size,
                 wall_s=wall, mp_s=args.files * width * height / 1e6 / wall,
                 pinned_views=views,
-                pinned_results_bytes=getattr(batch, "PINNED_RESULTS_BYTES", None),
+                # engine's since every host output shares it; batch's before.
+                pinned_results_bytes=getattr(tengine, "PINNED_RESULTS_BYTES",
+                                             getattr(batch, "PINNED_RESULTS_BYTES", None)),
                 before=before, holding=holding, dropped=dropped,
                 torch=torch.__version__)
     print(json.dumps(line), flush=True)

@@ -65,6 +65,7 @@ except ImportError:        # run from a checkout without PYTHONPATH: its own pac
     sys.path.append(str(Path(__file__).resolve().parent.parent))
 from imagepipe_tpu_torch import raw as traw
 from imagepipe_tpu_torch.kernels import develop as kdev
+from imagepipe_tpu_torch.kernels import library
 from imagepipe_tpu_torch.kernels import variants as kv
 
 sys.path.insert(1, str(Path(__file__).resolve().parent))
@@ -141,7 +142,7 @@ def ladder_inputs(size, device, count: int = 1):
     u16 and as float32."""
     raws = [traw.synthetic_bayer(*size, seed=20 + i) for i in range(count)]
     plan = tdk.plan_for(raws[0], 8, device)
-    scal = kdev.upload(kv.variant_scal(plan), device)
+    scal = library.upload(kv.variant_scal(plan), device)
     u16 = [torch.from_numpy(np.ascontiguousarray(r.data)).to(device) for r in raws]
     return plan, scal, {"u16": u16, "f32": [p.float() for p in u16]}
 
@@ -305,7 +306,7 @@ def main(argv=None) -> int:
     sass, ptxas = {}, {}
     if device.type == "cuda":
         t = time.perf_counter()
-        lib = kdev.build()
+        lib = library.build()
         print(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
         pkg = Path(kdev.__file__).resolve().parent.parent
         ptxas = tdk.ptxas_report(pkg / "csrc", pkg / "build", ("develop_variants.cu",))

@@ -16,7 +16,8 @@
   CPU each result a copy of its own; on the card (`cuda`-marked) each a
   view of its own pooled pinned block, bit-equal to the chunk-wide copy,
   on the full-size, thumbnail, width-sharded and eager routes, with the
-  counters `batch.pinned` and `batch.pinned_grew`.
+  counters `output.pinned` and `output.pinned_grew`; and the one budget of
+  pinned results (`engine.host_results`) over pipeline and batch results.
 
 Contract: max |diff| <= 1 LSB and under 2% of values differing against the
 JAX package; bit-equal to the port's own single-image develop on the CPU.
@@ -406,7 +407,7 @@ def test_batch_engine_cpu_results_are_separate_copies(dngs, bits):
         np.testing.assert_array_equal(a, k)
         np.testing.assert_array_equal(b, k)
     assert eng.timings["scatter"] > 0
-    assert "batch.pinned" not in counters and "batch.pinned_grew" not in counters
+    assert "output.pinned" not in counters and "output.pinned_grew" not in counters
 
 
 CARD_ROUTES = {   # name -> (devices repeated, spatial, maxwidth, executor)
@@ -473,9 +474,9 @@ def test_batch_engine_card_results_are_views_of_their_own_pinned_blocks(dngs, bi
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", list(CARD_ROUTES))
 def test_batch_engine_card_counts_pinned_and_stops_growing(dngs, route):
-    """While a profiler records, every image counts `batch.pinned`; once
+    """While a profiler records, every image counts `output.pinned`; once
     each pass drops the results of the pass before last, the pool holds
-    enough blocks and `batch.pinned_grew` stops."""
+    enough blocks and `output.pinned_grew` stops."""
     eng, _ = _card_engine(route, 8)
 
     def passes():
@@ -488,41 +489,52 @@ def test_batch_engine_card_counts_pinned_and_stops_growing(dngs, route):
         return counts
 
     counts, _ = _recorded(passes)
-    assert [c.get("batch.pinned", 0) for c in counts] == [len(dngs) * (k + 1) for k in range(8)]
-    grew = [c.get("batch.pinned_grew", 0) for c in counts]
+    assert [c.get("output.pinned", 0) for c in counts] == [len(dngs) * (k + 1) for k in range(8)]
+    grew = [c.get("output.pinned_grew", 0) for c in counts]
     assert grew[4:] == [grew[4]] * 4, grew
 
 
+@pytest.mark.parametrize("first", ["pipeline", "batch"])
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
-def test_result_views_stop_at_the_pinned_bound(monkeypatch, dtype):
-    """`_result_of` makes views of blocks while the blocks that live results
-    hold, counted as the pool's power-of-two blocks, stay within
-    `PINNED_RESULTS_BYTES`; past it a result is a copy with the same values
-    and strides. Collecting a view gives its share back."""
+def test_result_views_stop_at_the_pinned_bound(monkeypatch, dtype, first):
+    """`engine.host_results`, which makes every CUDA host result, makes
+    views of blocks while the blocks that live results hold, counted as the
+    pool's power-of-two blocks, stay within `PINNED_RESULTS_BYTES`; past it
+    a result is a copy with the same values and strides. A pipeline's
+    block (one [3, H, W] output, transposed as a Rotate90 output is) and a
+    batch's blocks (contiguous images) draw on the one budget, whichever
+    comes first. Collecting a view gives its share back. Host tensors stand
+    in for the pinned blocks: the budget is host bookkeeping."""
     import gc
 
-    from imagepipe_tpu_torch.parallel import batch
+    def block(k):
+        return torch.from_numpy((np.arange(3 * 20 * 30) + k).astype(dtype).reshape(3, 20, 30))
 
-    blocks = [torch.from_numpy((np.arange(3 * 20 * 30) + k).astype(dtype).reshape(3, 20, 30))
-              for k in range(4)]
-    size = 1 << (blocks[0].numpy().nbytes - 1).bit_length()
-    base = batch._pinned_held
-    monkeypatch.setattr(batch, "PINNED_RESULTS_BYTES", base + 2 * size)
-    got = [batch._result_of(b) for b in blocks[:3]]
+    pipe = block(0).transpose(-1, -2)
+    chunk = [block(k) for k in (1, 2, 3)]
+    size = 1 << (pipe.numpy().nbytes - 1).bit_length()
+    base = tengine._pinned_held
+    monkeypatch.setattr(tengine, "PINNED_RESULTS_BYTES", base + 2 * size)
+    if first == "pipeline":
+        blocks = [pipe] + chunk[:2]
+        got = tengine.host_results([pipe]) + tengine.host_results(chunk[:2])
+    else:
+        blocks = chunk[:2] + [pipe]
+        got = tengine.host_results(chunk[:2]) + tengine.host_results([pipe])
     assert [np.shares_memory(g, b.numpy()) for g, b in zip(got, blocks)] == [True, True, False]
     for g, b in zip(got, blocks):
         want = np.moveaxis(b.numpy(), 0, -1)
         assert g.strides == want.strides
         np.testing.assert_array_equal(g, want)
-    assert batch._pinned_held == base + 2 * size
+    assert tengine._pinned_held == base + 2 * size
     del got[0]
     gc.collect()
-    assert batch._pinned_held == base + size
-    got.append(batch._result_of(blocks[3]))
-    assert np.shares_memory(got[-1], blocks[3].numpy())
+    assert tengine._pinned_held == base + size
+    got += tengine.host_results([chunk[2]])
+    assert np.shares_memory(got[-1], chunk[2].numpy())
     del got
     gc.collect()
-    assert batch._pinned_held == base
+    assert tengine._pinned_held == base
 
 
 @pytest.mark.cuda
@@ -532,11 +544,9 @@ def test_batch_engine_card_results_past_the_pinned_bound_are_copies(dngs, monkey
     copy; once the pass's results are dropped the room comes back."""
     import gc
 
-    from imagepipe_tpu_torch.parallel import batch
-
     eng, want = _card_engine("full", 8)
     size = 1 << (3 * 64 * 96 - 1).bit_length()
-    monkeypatch.setattr(batch, "PINNED_RESULTS_BYTES", batch._pinned_held + 3 * size)
+    monkeypatch.setattr(tengine, "PINNED_RESULTS_BYTES", tengine._pinned_held + 3 * size)
     for _ in range(2):
         got = eng.develop_files(dngs)
         assert sorted(map(_pinned_view, got)) == [False] * 3 + [True] * 3

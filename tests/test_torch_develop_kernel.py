@@ -23,6 +23,8 @@ from imagepipe_tpu.raw import (Orientation, synthetic_bayer, synthetic_linear,
                                synthetic_mono, synthetic_xtrans)
 from imagepipe_tpu_torch.engine import plan_from_jax
 from imagepipe_tpu_torch.kernels import develop as kdev
+from imagepipe_tpu_torch.kernels import library
+from imagepipe_tpu_torch.ops.transform import apply_flips
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -134,7 +136,7 @@ def test_kernel_supported_mirrors_pallas(make):
 def test_apply_flips(flips, dtype):
     a = np.arange(3 * 5 * 7).reshape(3, 5, 7).astype(dtype)
     want = np.asarray(jdp.apply_flips(a, flips))
-    got = kdev.apply_flips(torch.from_numpy(a), flips)
+    got = apply_flips(torch.from_numpy(a), flips)
     assert got.dtype == torch.from_numpy(a).dtype
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -250,8 +252,8 @@ def test_develop_launch_fits_every_cfa(spline_stride):
     to 48 x 48, and the wrapper raises (never falls back) past 227 KB."""
     sizes = [kdev.develop_smem_bytes(ph, pw, spline_stride)
              for ph in range(1, kdev.MAX_PATTERN + 1) for pw in range(1, kdev.MAX_PATTERN + 1)]
-    assert max(sizes) == kdev.develop_smem_bytes(48, 48, spline_stride) <= kdev.MAX_SMEM
-    assert kdev.develop_smem_bytes(48, 48, 10_000) > kdev.MAX_SMEM
+    assert max(sizes) == kdev.develop_smem_bytes(48, 48, spline_stride) <= library.MAX_SMEM
+    assert kdev.develop_smem_bytes(48, 48, 10_000) > library.MAX_SMEM
 
 
 @pytest.mark.cuda

@@ -7,6 +7,12 @@
   `RenderService`; then
   no module in `sys.modules` has a file under `imagepipe_tpu/`, and `jax`
   never loaded.
+* In a fresh interpreter, import the eager engine and the ops without the
+  package's `__init__` (which imports the pipeline, and through it the
+  kernels' wrappers) and run their plain work on the CPU: the banded and
+  the width-sharded develop, the host output, the EXIF flips. No kernel
+  wrapper and not the kernels' library loads: the dependencies point one
+  way, ops -> engine -> kernels.
 * The port's host modules (decode, the RAW model, DNG/TIFF, the codecs, ...)
   are copies of the JAX package's JAX-free ones. A drift test per module
   holds each copy equal to its original, apart from the edits listed here,
@@ -163,12 +169,12 @@ assert [o.shape for o in outs] == [(48, 64, 3), (48, 64, 3), (32, 48, 3)]
 outs = BatchEngine(devices=["cpu"] * 2, spatial=2).develop_files([path, erf])
 assert [o.shape for o in outs] == [(48, 64, 3), (32, 48, 3)]
 # The width-sharded develop (its plain version on CPU devices).
-from imagepipe_tpu_torch.engine import make_develop_plan
+from imagepipe_tpu_torch.engine import make_develop_plan, stage_sp
 from imagepipe_tpu_torch.kernels import develop as kdev
 wide = raw.synthetic_xtrans(300, 24, seed=2)
 plan = make_develop_plan(tip.Pipeline.new_from_source(tip.ImageSource.from_raw(wide), "cpu"),
                          numerics="direct")
-sharded = kdev.develop_sp(plan, kdev.stage_sp(plan, wide.data, 3), ["cpu"] * 3)
+sharded = kdev.develop_sp(plan, stage_sp(plan, wide.data, 3), ["cpu"] * 3)
 assert sharded.shape == (3, 24, 300)
 # The develop kernel's ablation ladder (its plain version on the CPU).
 import torch
@@ -196,3 +202,52 @@ def test_port_never_imports_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "JAXPKG []" in proc.stdout, proc.stdout
     assert "JAXMODS []" in proc.stdout, proc.stdout
+
+
+# The kernels' wrappers and library, which the eager engine and the ops must
+# not load.
+_KERNEL_MODULES = ("develop", "develop_scaled", "rotate", "suffix", "variants", "library")
+
+_ENGINE_SCRIPT = r"""
+import sys, types
+# A bare package in place of the real one, whose __init__ imports the
+# pipeline: only engine's and ops' own imports load modules.
+pkg = types.ModuleType("imagepipe_tpu_torch")
+pkg.__path__ = [sys.argv[1]]
+sys.modules["imagepipe_tpu_torch"] = pkg
+import numpy as np
+import torch
+from imagepipe_tpu_torch import color, engine, ops
+from imagepipe_tpu_torch.buffer import OpBuffer
+from imagepipe_tpu_torch.ops.transform import rotate_buffer
+from imagepipe_tpu_torch.raw import Orientation, synthetic_bayer
+
+raw = synthetic_bayer(300, 40, seed=3)
+plan = engine.DevelopPlan(
+    cfa_name="RGGB", height=40, width=300, crop_x=0, crop_y=0, mode="cfa", out_bits=8,
+    linear=False, params={k: torch.tensor(np.asarray(v, np.float32)) for k, v in dict(
+        mins=[0.0] * 4, ranges=[4095.0] * 4, mul=[2.0, 1.0, 1.5, 1.0],
+        cmatrix=color.SRGB_D65_43, rgbmatrix=color.XYZ_D65_33).items()},
+    apply_curve=False, n_knots=0, orientation_flips=(True, False, True), numerics="direct",
+    device="cpu")
+plane = torch.from_numpy(raw.data.astype(np.uint16))
+whole = engine.develop_fused(plan, plane, bands=1)
+assert torch.equal(engine.develop_fused(plan, plane, bands=3), whole)
+shards = engine.stage_perimage_sp(plan, [raw.data, raw.data], 2)
+sharded = engine.develop_batch_perimage_sp([plan, plan], shards, ["cpu", "cpu"])
+assert torch.equal(sharded[1], whole)
+assert engine.planar_to_hwc(whole).shape == (300, 40, 3)
+buf = rotate_buffer(OpBuffer(40, 300, 3, False, whole.float()), Orientation.Rotate90)
+assert (buf.width, buf.height) == (300, 40)
+print("LOADED", sorted(m.rsplit(".", 1)[-1] for m in sys.modules
+                       if m.startswith("imagepipe_tpu_torch.kernels.")))
+"""
+
+
+def test_engine_and_ops_load_no_kernel_wrapper():
+    proc = subprocess.run([sys.executable, "-c", _ENGINE_SCRIPT, PORT_PKG],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("LOADED"))
+    loaded = set(ast.literal_eval(line[len("LOADED "):]))
+    assert loaded and not loaded & set(_KERNEL_MODULES), loaded

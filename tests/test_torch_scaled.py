@@ -34,6 +34,7 @@ from imagepipe_tpu.raw import (CFA, Orientation, synthetic_bayer, synthetic_line
 from imagepipe_tpu_torch import engine as tengine
 from imagepipe_tpu_torch.kernels import develop as kdev
 from imagepipe_tpu_torch.kernels import develop_scaled as kds
+from imagepipe_tpu_torch.kernels import library
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -234,7 +235,7 @@ def test_scaled_plan_fits(case):
     w, h, maxwidth, cfa = GEOMETRIES[case]
     plan = _geometry_plan(w, h, maxwidth, _xtrans_name() if cfa == "xtrans" else cfa)
     lp = kds.scaled_plan(plan, 160)
-    assert lp.smem <= kdev.MAX_SMEM
+    assert lp.smem <= library.MAX_SMEM
     assert lp.tc * lp.tr * lp.sx == kds.THREADS
     g = kds._host_geometry(plan)
     assert lp.kx == g["dx2"].shape[0] == int((g["to_x"] - g["from_x"]).max()) + 1
@@ -343,23 +344,23 @@ def test_build_key_covers_every_source_and_header(tmp_path):
     key, so a stale build is never reused. Needs no nvcc."""
     import shutil
 
-    csrc = kdev._CSRC
+    csrc = library._CSRC
     names = sorted(p.name for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
     assert {"develop.cu", "develop_scaled.cu", "finish.cuh"} <= set(names)
     shutil.copytree(csrc, tmp_path / "csrc")
     copy = tmp_path / "csrc"
-    base = kdev.build_key(copy)
-    assert base == kdev.build_key(csrc)
+    base = library.build_key(copy)
+    assert base == library.build_key(csrc)
     keys = {base}
     for name in names:
         f = copy / name
         data = f.read_bytes()
         f.write_bytes(data + b"\n// edit\n")
-        keys.add(kdev.build_key(copy))
+        keys.add(library.build_key(copy))
         f.write_bytes(data)
-        assert kdev.build_key(copy) == base
+        assert library.build_key(copy) == base
     (copy / "extra.cuh").write_text("#pragma once\n")
-    keys.add(kdev.build_key(copy))
+    keys.add(library.build_key(copy))
     assert len(keys) == len(names) + 2
 
 

@@ -81,7 +81,7 @@ def test_develop_sp_matches_jax_and_unsharded(case):
     want = np.asarray(develop_pallas_sp(jplan, raw.data, mesh))
 
     plan = tengine.plan_from_jax(jplan, "cpu")
-    shards = kdev.stage_sp(plan, raw.data, spatial)
+    shards = tengine.stage_sp(plan, raw.data, spatial)
     assert len(shards) == spatial
     before = kdev.SP_LAUNCHES
     got = kdev.develop_sp(plan, shards, ["cpu"] * spatial)
@@ -98,7 +98,7 @@ def test_develop_sp_batch_plain_per_image_calibration():
     raws = [_raw(jraw, "synthetic_xtrans", 300, 72, s, wb=wb)
             for s, wb in ((1, None), (2, (1.0, 1.0, 2.6, float("nan"))), (3, None))]
     plans = [tengine.plan_from_jax(_jax_plan(r), "cpu") for r in raws]
-    shards = kdev.stage_sp(plans[0], [r.data for r in raws], 3)
+    shards = tengine.stage_sp(plans[0], [r.data for r in raws], 3)
     assert [tuple(s.shape) for s in shards] == [(3, 72, 130), (3, 72, 130), (3, 72, 46)]
     got = kdev.develop_sp_batch(plans, shards, ["cpu"] * 3)
     want = kdev.develop_batch_plain(plans, torch.from_numpy(np.stack([r.data for r in raws])))
@@ -109,21 +109,21 @@ def test_develop_sp_batch_plain_per_image_calibration():
 def test_sp_shards_split_rule():
     """Whole 128-column tiles for every shard but the last, which takes the
     rest; a crop narrower than spatial - 1 tiles gets fewer shards."""
-    assert kdev.sp_shards(6000, 2) == [(0, 3072), (3072, 2928)]
-    assert kdev.sp_shards(6000, 3) == [(0, 2048), (2048, 2048), (4096, 1904)]
-    assert kdev.sp_shards(9504, 3) == [(0, 3200), (3200, 3200), (6400, 3104)]
-    assert kdev.sp_shards(256, 2) == [(0, 128), (128, 128)]
-    assert kdev.sp_shards(96, 2) == [(0, 96)]
-    assert kdev.sp_shards(300, 1) == [(0, 300)]
+    assert tengine.sp_shards(6000, 2) == [(0, 3072), (3072, 2928)]
+    assert tengine.sp_shards(6000, 3) == [(0, 2048), (2048, 2048), (4096, 1904)]
+    assert tengine.sp_shards(9504, 3) == [(0, 3200), (3200, 3200), (6400, 3104)]
+    assert tengine.sp_shards(256, 2) == [(0, 128), (128, 128)]
+    assert tengine.sp_shards(96, 2) == [(0, 96)]
+    assert tengine.sp_shards(300, 1) == [(0, 300)]
     for width in (1, 127, 129, 6017, 9504):
         for spatial in (1, 2, 3, 4):
-            shards = kdev.sp_shards(width, spatial)
+            shards = tengine.sp_shards(width, spatial)
             assert len(shards) <= spatial
             assert sum(w for _, w in shards) == width
             assert all(w % 128 == 0 for _, w in shards[:-1])
             assert all(x == sum(w for _, w in shards[:i]) for i, (x, _) in enumerate(shards))
     with pytest.raises(ValueError):
-        kdev.sp_shards(100, 0)
+        tengine.sp_shards(100, 0)
 
 
 def test_stage_and_exchange_halos():
@@ -134,11 +134,11 @@ def test_stage_and_exchange_halos():
     plan = tengine.make_develop_plan(tip.Pipeline.new_from_source(TSource.from_raw(raw), "cpu"),
                                      numerics="direct")
     crop = raw.data[plan.crop_y:plan.crop_y + plan.height, plan.crop_x:plan.crop_x + plan.width]
-    shards = kdev.stage_sp(plan, raw.data, 3)
+    shards = tengine.stage_sp(plan, raw.data, 3)
     assert [tuple(s.shape) for s in shards] == [(16, 130), (16, 130), (16, 39)]
     for s in shards:
         assert not s[:, 0].any() and not s[:, -1].any()
-    kdev.exchange_halos(shards)
+    tengine.exchange_halos(shards)
     full = np.concatenate([s[:, 1:-1].numpy() for s in shards], axis=1)
     np.testing.assert_array_equal(full, crop)
     np.testing.assert_array_equal(shards[1][:, 0].numpy(), crop[:, 127])
@@ -146,7 +146,7 @@ def test_stage_and_exchange_halos():
     np.testing.assert_array_equal(shards[2][:, 0].numpy(), crop[:, 255])
     np.testing.assert_array_equal(shards[1][:, -1].numpy(), crop[:, 256])
     assert not shards[0][:, 0].any() and not shards[2][:, -1].any()
-    batch = kdev.stage_sp(plan, [raw.data, raw.data], 2)
+    batch = tengine.stage_sp(plan, [raw.data, raw.data], 2)
     assert [tuple(s.shape) for s in batch] == [(2, 16, 258), (2, 16, 39)]
     np.testing.assert_array_equal(batch[1][1, :, 1:-1].numpy(), crop[:, 256:])
 
@@ -155,7 +155,7 @@ def test_develop_sp_refuses_what_it_does_not_take():
     raw = _raw(traw, "synthetic_bayer", 300, 20, 1)
     plan = tengine.make_develop_plan(tip.Pipeline.new_from_source(TSource.from_raw(raw), "cpu"),
                                      numerics="direct")
-    shards = kdev.stage_sp(plan, raw.data, 3)
+    shards = tengine.stage_sp(plan, raw.data, 3)
     with pytest.raises(ValueError, match="3 shards for 2 devices"):
         kdev.develop_sp(plan, shards, ["cpu"] * 2)
     with pytest.raises(ValueError, match="columns of a crop"):
@@ -285,7 +285,7 @@ def test_shard_launch_matches_unsharded_launch_on_card(case):
     raw = _raw(traw, make, 880, 134, 5, crops=(3, 5, 7, 11), orientation="Rotate90")
     plan = tengine.make_develop_plan(tip.Pipeline.new_from_source(TSource.from_raw(raw), "cuda"),
                                      numerics="direct")
-    shards = kdev.stage_sp(plan, raw.data, spatial)
+    shards = tengine.stage_sp(plan, raw.data, spatial)
     before = kdev.SP_LAUNCHES
     got = kdev.develop_sp(plan, shards, ["cuda"] * spatial)
     torch.cuda.synchronize()

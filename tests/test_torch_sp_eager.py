@@ -281,7 +281,7 @@ def test_shard_batch_matches_jax(shape, spatial, rows):
         assert len(row) == spatial
         for piece in row:
             assert piece.device.type == "cpu" and piece.is_contiguous()
-    block, cols = shape[0] // rows, kdev.sp_shards(shape[2], spatial)
+    block, cols = shape[0] // rows, tengine.sp_shards(shape[2], spatial)
     for r, row in enumerate(pieces):
         for (x, _), piece in zip(cols, row):
             np.testing.assert_array_equal(piece.numpy(), jshards[(r * block, x)])
@@ -297,7 +297,7 @@ def test_shard_batch_concatenates_back(shape, spatial, rows):
     pieces = shard_batch(make_batch_mesh(["cpu"] * (rows * spatial), spatial), a)
     assert len(pieces) == rows
     block = -(-shape[0] // rows)
-    cols = kdev.sp_shards(shape[2], spatial)
+    cols = tengine.sp_shards(shape[2], spatial)
     for r, row in enumerate(pieces):
         assert len(row) == len(cols)
         assert all(p.shape[0] == max(0, min(block, shape[0] - r * block)) for p in row)
