@@ -1398,7 +1398,7 @@ def phase3e(device, bayer_paths, single_mps, card) -> None:
               f"{[round(w, 1) for w in walls]} ms), single process (phase 3b, this call) "
               f"{single_mps[label]:.1f} MP/s (on {card})")
         for r, p in enumerate(per):
-            print(f"    rank {r}: {p['files']} files, {p['decode_workers']} decode threads, walls "
+            print(f"    rank {r}: {p['files']} files, {p['decode_workers']} decode processes, walls "
                   f"{[round(w * 1e3, 1) for w in p['walls']]} ms; host ms of the last run "
                   f"{p['timings'][-1]}")
 
@@ -1457,7 +1457,7 @@ def phase3b(device, bayer_paths, bayer_bases, card) -> tuple[dict, dict]:
         mps[label] = mp / wall * 1e3
         print(f"  develop_files, {len(bayer_paths)} x 24 MP Bayer, {label}: {mp / wall * 1e3:.1f} "
               f"source MP/s (median of 3 walls {[round(w, 1) for w in walls]} ms); host ms of "
-              f"the last run {host} (decode summed over {eng.decode_workers} threads) (on {card})")
+              f"the last run {host} (decode summed over {eng.decode_workers} processes) (on {card})")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             eng.develop_files(bayer_paths)

@@ -1,8 +1,9 @@
 """Batched multi-device develop engine.
 
 Counterpart of `imagepipe_tpu/parallel/batch.py`. A file list is decoded by
-a host thread pool, bucketed by shape class, and each bucket is developed
-`max_batch` images at a time, every image with its own calibration:
+a pool of host processes, bucketed by shape class, and each bucket is
+developed `max_batch` images at a time, every image with its own
+calibration:
 
   * Routing by plan, never a fallback on failure: full-size cfa/mono plans
     and 'scaled' cfa plans in 'direct' numerics go to the batched kernels
@@ -52,15 +53,46 @@ memory, as on the CPU. So a caller may keep any number of results without
 locking more host memory than that; a caller with a long list still
 passes it in parts, so that it holds no more results than it writes at
 once. On the CPU each result is a copy of its image out of the chunk's
-output. Only the calling thread touches CUDA; decode threads return numpy.
+output.
+
+Decode runs in worker processes, so that the calling thread's plan,
+staging and dispatch do not wait for the interpreter lock behind the
+decoders. The pool (`_DecodePool`) is forked at the engine's first
+`develop_files` and kept until the engine is collected or the process
+exits, as torch's DataLoader forks workers from a process that holds a
+CUDA context: a worker runs `decode.decode_file` and numpy only, never
+torch. A worker copies its file's sensor plane into a slot, a named
+`multiprocessing.shared_memory` block that it attaches once and keeps
+attached, and returns the RawImage's other fields; the source is rebuilt
+around a view of the slot. A slot is held from its file's decode until
+its chunk is staged (`_stage` copies it), then goes back to a free list
+by byte size. A file is given a free slot of the size its path's last
+decode took (else the last decode's), made only when none is free; where
+that guess misses, the worker makes one of its plane's size. So after a
+first pass over the same files a pass makes none. At most
+`2 * decode_workers` files are decoding or decoded but not yet planned,
+so the slots held are bounded by those and the partial buckets, not by
+the list. No result and no staged buffer aliases a slot. One engine runs
+one `develop_files` at a time. Only the calling thread touches CUDA.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import gc
+import itertools
+import multiprocessing
+import multiprocessing.util
 import os
+import queue
+import secrets
+import threading
+import time
+import warnings
 from collections import defaultdict
+from concurrent.futures.process import BrokenProcessPool
+from multiprocessing import resource_tracker, shared_memory
 
 import numpy as np
 import torch
@@ -98,8 +130,8 @@ class BatchError:
 
 def default_decode_workers() -> int:
     """Host decode is the throughput-limiting stage of a serving job, so one
-    worker per available core (affinity-aware), capped at 16: the fujic and
-    DNG decoders spin their own small pools per file."""
+    decode process per available core (affinity-aware), capped at 16: the
+    fujic and DNG decoders spin their own small pools per file."""
     try:
         ncpu = len(os.sched_getaffinity(0))
     except AttributeError:  # non-Linux
@@ -146,13 +178,244 @@ def shard_batch(rows, planes) -> list[list[torch.Tensor]]:
             for r, row in enumerate(rows)]
 
 
-def _timed_decode(path, request_id):
-    """(source, seconds) of one file's decode on a pool thread: the span
-    `batch.decode` of the pass `request_id`."""
-    seconds = {}
-    with profiling.span("batch.decode", into=seconds, key="decode", request_id=request_id):
-        src = decode_file(path)
-    return src, seconds["decode"]
+# In a decode worker: the slots it has attached, by name, and the pool's
+# generation they were attached in (a new one once the pool unlinks slots).
+_attached: dict = {}
+_attached_generation = 0
+_made = itertools.count()
+
+
+def _decode_into_slot(path, slot, size, prefix, generation):
+    """A decode worker's task: `decode_file(path)`, its RAW's sensor plane
+    copied into the slot named `slot` of `size` bytes or, where none was
+    given or the plane takes another size, into a new block named from
+    `prefix`. Returns (the source without its plane, (slot, bytes, shape,
+    dtype, made here) or None for a raster source, which comes back whole,
+    the worker's pid, and its `perf_counter_ns` at the start and the end).
+    Touches no torch."""
+    global _attached_generation
+    start = time.perf_counter_ns()
+    if generation != _attached_generation:
+        for shm in _attached.values():
+            shm.close()
+        _attached.clear()
+        _attached_generation = generation
+    src = decode_file(path)
+    if not src.is_raw:
+        return src, None, os.getpid(), start, time.perf_counter_ns()
+    data = np.asarray(src.raw.data)
+    nbytes = max(data.nbytes, 1)
+    made = slot is None or size != nbytes
+    if made:
+        slot = f"{prefix}w{os.getpid()}_{next(_made)}"
+        _attached[slot] = shared_memory.SharedMemory(slot, create=True, size=nbytes)
+    elif slot not in _attached:
+        _attached[slot] = shared_memory.SharedMemory(slot)
+    try:
+        np.ndarray(data.shape, data.dtype, buffer=_attached[slot].buf)[...] = data
+    except BaseException:
+        if made:
+            _attached.pop(slot).unlink()
+        raise
+    src.raw.data = None
+    return (src, (slot, nbytes, data.shape, data.dtype.str, made), os.getpid(), start,
+            time.perf_counter_ns())
+
+
+def _watch_parent(parent: int) -> None:
+    """A decode worker's initializer: a thread that ends the worker once
+    its parent has gone without closing the pool (killed), as torch's
+    DataLoader workers watch theirs; else the workers would wait on the
+    pool's queue for good."""
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(0)
+
+    threading.Thread(target=watch, name="decode-parent-watch", daemon=True).start()
+
+
+class _DecodePool:
+    """The decode worker processes of one engine and the shared-memory
+    slots through which they hand planes back (module docstring). Holds no
+    reference to its engine, so that `close` can run as the engine's
+    finalizer; used by the engine's calling thread only."""
+
+    def __init__(self, workers: int):
+        self.workers = workers
+        self.pid = os.getpid()
+        self.prefix = f"ipt{self.pid}_{secrets.token_hex(4)}_"
+        self.executor = None
+        self.broken = False
+        self.slots: dict = {}               # name -> SharedMemory, every slot
+        self.free = defaultdict(list)       # byte size -> names of free slots
+        self.nfree = 0
+        self.sizes = collections.OrderedDict()  # path -> bytes of its last plane
+        self.last_size = None
+        self.generation = 0
+
+    def begin(self) -> None:
+        """Start a pass, and the workers at the engine's first. Forked from
+        this thread with the collector's objects frozen, so that a worker's
+        collections never run a finalizer of the parent's garbage; the
+        resource tracker runs first, so that the workers share it."""
+        self.done = queue.SimpleQueue()
+        self.outstanding: dict = {}         # future -> (index, path, slot given)
+        self.held: dict = {}                # index -> slot of a decoded file
+        self.unsized = 0                    # decodes out with no slot given
+        self.used, self.peak = set(), 0
+        if os.getpid() != self.pid:
+            raise RuntimeError("BatchEngine: the decode pool belongs to the process that made "
+                               "the engine; make an engine in this process")
+        if self.executor is not None:
+            return
+        resource_tracker.ensure_running()
+        self.executor = cf.ProcessPoolExecutor(
+            self.workers, mp_context=multiprocessing.get_context("fork"),
+            initializer=_watch_parent, initargs=(self.pid,))
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "This process .* is multi-threaded",
+                                    DeprecationWarning)
+            gc.freeze()
+            try:
+                started = self.executor.submit(os.getpid)
+            finally:
+                gc.unfreeze()
+        started.result()
+
+    def _make(self, size: int) -> str:
+        name = f"{self.prefix}m{next(_made)}"
+        self.slots[name] = shared_memory.SharedMemory(name, create=True, size=size)
+        profiling.count("batch.decode_slots_grew")
+        return name
+
+    def submit(self, idx: int, path: str) -> None:
+        """Hand `path` to the pool with a free slot of the size its last
+        decode (or else the last decode) took, made if none is free."""
+        size = self.sizes.get(path, self.last_size)
+        slot = None
+        if size is not None:
+            if self.free[size]:
+                slot = self.free[size].pop()
+                self.nfree -= 1
+            else:
+                slot = self._make(size)
+        self.unsized += slot is None
+        self._count_held()
+        try:
+            fut = self.executor.submit(_decode_into_slot, path, slot, size, self.prefix,
+                                       self.generation)
+        except BaseException as e:
+            self.broken |= isinstance(e, BrokenProcessPool)
+            self.unsized -= slot is None
+            self._release(slot)
+            raise
+        self.outstanding[fut] = (idx, path, slot)
+        fut.add_done_callback(self.done.put)
+
+    def next_done(self):
+        """The next decode to finish as (index, future), None when none is
+        out."""
+        if not self.outstanding:
+            return None
+        fut = self.done.get()
+        return self.outstanding[fut][0], fut
+
+    def receive(self, fut):
+        """(source, seconds, pid, start_ns, end_ns) of a finished decode,
+        its plane a view of the slot it came back in, which the file now
+        holds; raises the worker's exception, its slot freed."""
+        idx, path, given = self.outstanding.pop(fut)
+        self.unsized -= given is None
+        try:
+            src, slot, pid, start, end = fut.result()
+        except BaseException as e:
+            self.broken |= isinstance(e, BrokenProcessPool)
+            self._release(given)
+            raise
+        if slot is None:
+            self._release(given)
+            return src, (end - start) / 1e9, pid, start, end
+        name, nbytes, shape, dtype, made = slot
+        if made:
+            self.slots[name] = shared_memory.SharedMemory(name)
+            profiling.count("batch.decode_slots_grew")
+            self._release(given)
+        self.held[idx] = name
+        self._count_held()
+        self.used.add(nbytes)
+        self.sizes[path] = self.last_size = nbytes
+        self.sizes.move_to_end(path)
+        if len(self.sizes) > 4096:
+            self.sizes.popitem(last=False)
+        profiling.count("batch.decode_slots")
+        src.raw.data = np.ndarray(shape, np.dtype(dtype), buffer=self.slots[name].buf)
+        return src, (end - start) / 1e9, pid, start, end
+
+    def _count_held(self) -> None:
+        """The pass's peak of slots held, a decode given none counting as
+        one: what a like pass will hold again."""
+        self.peak = max(self.peak, len(self.slots) - self.nfree + self.unsized)
+
+    def _release(self, name) -> None:
+        if name is not None:
+            self.free[self.slots[name].size].append(name)
+            self.nfree += 1
+
+    def release(self, idx: int) -> None:
+        """The file `idx` is staged (or failed): its slot goes back."""
+        self._release(self.held.pop(idx, None))
+
+    def finish(self) -> None:
+        """End a pass, on an exception too: wait for the decodes still out
+        (their slots are being written) and take back every slot. Past
+        twice the pass's peak, free slots are unlinked, of sizes the pass
+        did not use first: a slot is made where a file's plane took another
+        size than its guess, and this bounds what such files leave. A
+        broken pool is dropped, for the next pass to start anew."""
+        for fut in list(self.outstanding):
+            fut.cancel()
+        cf.wait(list(self.outstanding))
+        for fut in list(self.outstanding):
+            idx = self.outstanding[fut][0]
+            try:
+                self.receive(fut)
+            except Exception:   # cancelled, or the decode failed: its slot is back
+                continue
+            self.release(idx)
+        for idx in list(self.held):
+            self.release(idx)
+        excess = len(self.slots) - 2 * self.peak if self.used else 0
+        for size in sorted(self.free, key=lambda size: size in self.used):
+            while excess > 0 and self.free[size]:
+                self._unlink(self.free[size].pop())
+                self.nfree -= 1
+                excess -= 1
+        if self.broken:
+            self.executor.shutdown(wait=False, cancel_futures=True)
+            self.executor, self.broken = None, False
+
+    def _unlink(self, name) -> None:
+        shm = self.slots.pop(name)
+        try:
+            shm.close()
+        except BufferError:     # a view outlives the pass (a traceback's frame)
+            pass
+        shm.unlink()
+        self.generation += 1
+
+    def close(self) -> None:
+        """Stop the workers and unlink every slot: the engine's finalizer,
+        at its collection or the process's exit; a no-op in a fork."""
+        if os.getpid() != self.pid:
+            return
+        if self.executor is not None:
+            self.executor.shutdown(wait=True, cancel_futures=True)
+            self.executor = None
+        for name in list(self.slots):
+            self._unlink(name)
+        self.free.clear()
+        self.nfree = 0
 
 
 class BatchEngine:
@@ -164,7 +427,9 @@ class BatchEngine:
     spatial > 1 a row width-shards each chunk but those of the scaled
     kernel, so devices=["cuda:0", "cuda:0"], spatial=2 runs the sharded
     path on one card. out_bits: 8 (sRGB) or 16 (linear). max_batch: images per launch.
-    decode_workers: decode threads (default `default_decode_workers()`).
+    decode_workers: decode processes (default `default_decode_workers()`),
+    forked at the first `develop_files` and kept until the engine is
+    collected or the process exits.
     maxwidth / maxheight: thumbnail limits, 0 for none. executor: 'auto' or
     'kernel' (the batched kernels for the plans they take; the two are the
     same here, as no plan prefers the eager engine) or 'eager'.
@@ -196,10 +461,12 @@ class BatchEngine:
         # the eager engine for the rest; 'eager': the eager engine only.
         self.executor = executor
         # Host seconds by stage (the sums of the `batch.<stage>` spans)
-        # over calls: decode (in the pool's threads), submit (the calling
-        # thread starting the pool and handing it the files), decode_wait
-        # (the calling thread blocked on the pool's next file), plan, stage
-        # (into pinned buffers), dispatch (enqueue of copies and launches),
+        # over calls: decode (the workers' seconds a file, decode and the
+        # copy into its slot), submit (the calling thread handing the pool
+        # the first files of a pass, and starting it at the first),
+        # decode_wait (the calling thread taking the pool's next decoded
+        # file, blocked until there is one, and handing it the next path),
+        # plan, stage (into pinned buffers), dispatch (enqueue of copies and launches),
         # wait (for the card, in _collect), scatter (out of pinned buffers
         # into the results: on CUDA views of each image's pinned block).
         self.timings = collections.Counter()
@@ -207,6 +474,13 @@ class BatchEngine:
         # tuples are appended on every decode, dispatch, collect and error.
         self._events: list | None = None
         self._next_row = 0
+        # Closed when the engine is collected, and at the process's exit
+        # before multiprocessing joins its children and closes the pool's
+        # queues (their finalizers' priority is 10): also in a process that
+        # multiprocessing started, where neither `atexit` nor the pool's
+        # own exit hook runs.
+        self._decode = _DecodePool(self.decode_workers)
+        multiprocessing.util.Finalize(self, self._decode.close, exitpriority=100)
 
     def _note(self, event: str, payload) -> None:
         if self._events is not None:
@@ -355,7 +629,10 @@ class BatchEngine:
 
         errors: 'raise' aborts the job on the first undecodable file;
         'skip' records a BatchError in that file's slot and the rest
-        completes (one corrupt file must not discard a directory's work)."""
+        completes (one corrupt file must not discard a directory's work).
+        Either way a decode error has the type the worker raised, and a
+        worker that dies raises `BrokenProcessPool`; the next call then
+        starts a new pool."""
         if errors not in ("raise", "skip"):
             raise ValueError(f"errors {errors!r}: 'raise' or 'skip'")
         with profiling.request("batch.develop_files"):
@@ -363,40 +640,57 @@ class BatchEngine:
 
     def _develop_files(self, paths, errors):
         """`develop_files` inside its request span, so that the span also
-        holds the release of the pass's decoded files."""
+        holds the end of the pass: the slots taken back."""
         results: list = [None] * len(paths)
         buckets: dict = defaultdict(list)
         inflight = []
         rid = profiling.current_request()
-        with cf.ThreadPoolExecutor(self.decode_workers) as pool:
+        pool = self._decode
+        todo = enumerate(paths)
+        try:
             with profiling.span("batch.submit", into=self.timings, key="submit"):
-                futs = {pool.submit(_timed_decode, p, rid): i for i, p in enumerate(paths)}
-            done = cf.as_completed(futs)
+                pool.begin()
+                for idx, path in itertools.islice(todo, 2 * self.decode_workers):
+                    pool.submit(idx, path)
             while True:
                 with profiling.span("batch.decode_wait", into=self.timings, key="decode_wait"):
-                    fut = next(done, None)
-                if fut is None:
+                    done = pool.next_done()
+                    if done is not None:
+                        for idx, path in itertools.islice(todo, 1):
+                            pool.submit(idx, path)
+                if done is None:
                     break
-                idx = futs[fut]
+                idx, fut = done
                 try:
-                    src, seconds = fut.result()
+                    src, seconds, pid, start, end = pool.receive(fut)
                     self.timings["decode"] += seconds
+                    profiling.add_span("batch.decode", start, end, thread=pid, request_id=rid)
                     self._note("decoded", idx)
                     plan = self._plan_timed(src)
+                except BrokenProcessPool:
+                    raise
                 except Exception as e:
                     if errors == "raise":
                         raise
+                    pool.release(idx)
                     results[idx] = BatchError(paths[idx], e)
                     self._note("error", idx)
                     continue
                 key = self._bucket_key(src, plan)
                 buckets[key].append((idx, src, plan))
                 if len(buckets[key]) >= self.max_batch:
-                    chunk = buckets.pop(key)
-                    inflight.append((chunk, self._dispatch_chunk(chunk)))
-                    self._collect(inflight, results, keep=self.inflight_batches)
+                    self._dispatch_files(buckets.pop(key), inflight, results)
             for chunk in buckets.values():
-                inflight.append((chunk, self._dispatch_chunk(chunk)))
-                self._collect(inflight, results, keep=self.inflight_batches)
+                self._dispatch_files(chunk, inflight, results)
+        finally:
+            pool.finish()
         self._collect(inflight, results)
         return results
+
+    def _dispatch_files(self, chunk, inflight, results):
+        """Dispatch a chunk of decoded files, give their slots back once
+        staged, and collect down to `inflight_batches`."""
+        inflight.append((chunk, self._dispatch_chunk(chunk)))
+        for idx, _, _ in chunk:
+            self._decode.release(idx)
+        self._collect(inflight, results, keep=self.inflight_batches)

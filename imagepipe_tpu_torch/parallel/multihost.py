@@ -6,7 +6,9 @@ the same global list and takes the deterministic round-robin slice
 `paths[rank::world]` (`partition_files`), so each host's decode I/O rides
 its own disk and NIC. Each rank develops its slice through one local
 `BatchEngine` on its own devices: on CUDA the batched kernels
-(`develop_batch`, `develop_scaled_batch`). Pixel bytes never cross ranks;
+(`develop_batch`, `develop_scaled_batch`). Each rank forks its own pool of
+`decode_workers` decode processes, so R ranks on one host run R times
+that many. Pixel bytes never cross ranks;
 the collectives carry only host metadata, each rank's status, over a gloo
 group (`all_gather_object`):
 

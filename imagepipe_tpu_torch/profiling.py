@@ -16,7 +16,9 @@
   child spans inherit (a request inside a request is an ordinary child).
   A span run for a request on another thread (a decode worker) is given
   that request's id (`request_id=`, from `current_request()`) and goes to
-  the recorder only: a profiler records the thread that opened it.
+  the recorder only: a profiler records the thread that opened it. A span
+  that ran in another process (a decode worker) is added afterwards from
+  its own clock readings (`add_span`).
 * `count(name, n)` adds to a counter while a profiler records;
   `recording()` says whether one does.
 * `spans()`, `counters()` and `reset()` read and clear the recorder; it
@@ -45,7 +47,7 @@ import time
 import torch
 
 __all__ = ["trace", "timed_sync", "device_fence", "span", "request", "current_request",
-           "recording", "count", "spans", "counters", "reset", "MAX_SPANS"]
+           "add_span", "recording", "count", "spans", "counters", "reset", "MAX_SPANS"]
 
 MAX_SPANS = 1 << 18
 
@@ -212,6 +214,21 @@ def current_request() -> int | None:
     """The id of the request open in this context while a profiler
     records, for the spans another thread runs for it; else None."""
     return _request.get() if _recording() else None
+
+
+def add_span(name: str, start_ns: int, end_ns: int, *, thread: int,
+             request_id: int | None) -> None:
+    """Record a span that ran in another process for the request
+    `request_id` (from `current_request()`; None records nothing), from
+    `start_ns` to `end_ns` of that process's `time.perf_counter_ns`. On
+    Linux that is CLOCK_MONOTONIC, one clock for every process of the
+    host, so the span sits on the recorder's clock. `thread` names the
+    process (its pid); the parent is the request's first span."""
+    if request_id is None:
+        return
+    entry = _REC.open(name, request_id, None, None)
+    if entry is not None:
+        entry.update(start_ns=start_ns, end_ns=end_ns, thread=thread)
 
 
 def recording() -> bool:

@@ -18,12 +18,21 @@
   on the full-size, thumbnail, width-sharded and eager routes, with the
   counters `output.pinned` and `output.pinned_grew`; and the one budget of
   pinned results (`engine.host_results`) over pipeline and batch results.
+* The decode pool of `develop_files`: worker processes kept across calls,
+  planes handed back through reused shared-memory slots (counters
+  `batch.decode_slots`, `batch.decode_slots_grew`), results bit-equal to
+  `develop_sources` on the same decoded files (on the card as well, under
+  an open profiler too), a worker's error type kept, a bounded number of
+  slots, and nothing left once the engine is collected.
 
 Contract: max |diff| <= 1 LSB and under 2% of values differing against the
 JAX package; bit-equal to the port's own single-image develop on the CPU.
 The kernels themselves are compared on the card by the `cuda`-marked tests
 of tests/test_torch_develop_kernel.py and test_torch_scaled.py.
 """
+
+import contextlib
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -556,6 +565,218 @@ def test_batch_engine_card_results_past_the_pinned_bound_are_copies(dngs, monkey
         assert not _shares(got)
         del got
         gc.collect()
+
+
+# -- the decode pool -------------------------------------------------------
+
+def _worker_pids(eng) -> set:
+    return set(eng._decode.executor._processes)
+
+
+def test_develop_files_keeps_its_workers_and_slots(dngs):
+    """Two calls decode in the same worker processes, the second through
+    the slots the first made: every file comes back through a slot, and
+    none is made."""
+    eng = BatchEngine(devices=["cpu"], max_batch=2, decode_workers=2)
+
+    def passes():
+        got = []
+        for _ in range(2):
+            profiling.reset()
+            eng.develop_files(dngs)
+            decodes = [s for s in profiling.spans() if s["name"] == "batch.decode"]
+            got.append(({s["thread"] for s in decodes}, profiling.counters()))
+        return got
+
+    (first, counts1), (second, counts2) = _recorded(passes)[0]
+    assert first == second == _worker_pids(eng) and len(first) <= 2
+    assert counts1["batch.decode_slots"] == counts2["batch.decode_slots"] == len(dngs)
+    assert counts1["batch.decode_slots_grew"] == len(eng._decode.slots) > 0
+    assert "batch.decode_slots_grew" not in counts2
+
+
+@pytest.mark.parametrize("maxwidth", [0, 40], ids=["full", "thumb"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_develop_files_matches_develop_sources(dngs, bits, maxwidth):
+    """Planes handed back through slots develop bit for bit as the same
+    files decoded here, Normal and Rotate90, over two passes (the second
+    reusing the slots)."""
+    from imagepipe_tpu_torch.decode import decode_file
+
+    eng = BatchEngine(devices=["cpu"], max_batch=2, out_bits=bits, maxwidth=maxwidth,
+                      decode_workers=2)
+    want = BatchEngine(devices=["cpu"], max_batch=2, out_bits=bits, maxwidth=maxwidth
+                       ).develop_sources([decode_file(p) for p in dngs])
+    for _ in range(2):
+        got = eng.develop_files(dngs)
+        assert [g.shape for g in got] == [w.shape for w in want]
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
+def test_develop_files_worker_errors_keep_their_type(dngs, tmp_path):
+    """A corrupt file fails in a worker with the error decoding it here
+    raises: under errors='skip' its BatchError carries that type and the
+    rest develops; under errors='raise' that type is raised, and the
+    engine's next pass still develops every file."""
+    from imagepipe_tpu_torch.decode import decode_file
+
+    bad = tmp_path / "corrupt.dng"
+    bad.write_bytes(b"II*\x00 not a raw file at all")
+    with pytest.raises(Exception) as here:
+        decode_file(str(bad))
+    paths = dngs[:2] + [str(bad)] + dngs[2:]
+    eng = BatchEngine(devices=["cpu"], max_batch=2, decode_workers=2)
+    outs = eng.develop_files(paths, errors="skip")
+    assert isinstance(outs[2], BatchError) and type(outs[2].error) is here.type
+    assert str(outs[2].error) == str(here.value)
+    assert all(isinstance(o, np.ndarray) for i, o in enumerate(outs) if i != 2)
+    with pytest.raises(here.type):
+        eng.develop_files(paths)
+    assert all(isinstance(o, np.ndarray) for o in eng.develop_files(dngs))
+    assert eng._decode.nfree == len(eng._decode.slots)
+
+
+def test_develop_files_holds_a_bounded_number_of_slots(dngs):
+    """40 files at max_batch 2 over two buckets hold at most the pool's
+    window of 2 x decode_workers, the file being planned and a partial
+    bucket each: not one slot a file."""
+    eng = BatchEngine(devices=["cpu"], max_batch=2, decode_workers=2)
+    paths = (dngs * 7)[:40]
+    outs, counts = _recorded(lambda: eng.develop_files(paths))
+    bound = 2 * 2 + 1 + 2 * (2 - 1)
+    assert all(isinstance(o, np.ndarray) for o in outs)
+    assert counts["batch.decode_slots"] == 40
+    assert eng._decode.peak <= bound and counts["batch.decode_slots_grew"] <= bound
+    assert len(eng._decode.slots) <= bound
+
+
+def test_develop_files_mixed_sizes_with_more_workers_than_cores(tmp_path):
+    """Three plane sizes interleaved, under new paths each pass (links to
+    the same files), so that a slot's size is a guess that misses, and more
+    workers than cores: every pass bit-equal to `develop_sources` over the
+    files decoded here, and the slots within twice a pass's peak."""
+    from imagepipe_tpu_torch.decode import decode_file
+    from imagepipe_tpu_torch.dng import write_dng
+
+    files = []
+    for s in range(24):
+        w, h = [(96, 64), (48, 32), (64, 48)][s % 3]
+        files.append(str(tmp_path / f"m{s}.dng"))
+        write_dng(files[-1], traw.synthetic_bayer(w, h, seed=200 + s))
+    want = BatchEngine(devices=["cpu"], max_batch=3).develop_sources(
+        [decode_file(p) for p in files])
+    eng = BatchEngine(devices=["cpu"], max_batch=3, decode_workers=(os.cpu_count() or 4) + 2)
+    for k in range(3):
+        links = []
+        for i, f in enumerate(files):
+            links.append(str(tmp_path / f"pass{k}_{i}.dng"))
+            os.symlink(f, links[-1])
+        got = eng.develop_files(links)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert eng._decode.nfree == len(eng._decode.slots) <= 2 * eng._decode.peak
+
+
+def test_a_dead_worker_breaks_the_pass_and_the_next_starts_anew(dngs):
+    """A worker killed between calls fails the next call with
+    BrokenProcessPool, whatever `errors` says; the call after it forks new
+    workers and develops every file."""
+    import signal
+    from concurrent.futures.process import BrokenProcessPool
+
+    eng = BatchEngine(devices=["cpu"], max_batch=2, decode_workers=2)
+    want = eng.develop_files(dngs)
+    old = _worker_pids(eng)
+    os.kill(next(iter(old)), signal.SIGKILL)
+    with pytest.raises(BrokenProcessPool):
+        for _ in range(50):     # until the pool has seen its worker die
+            eng.develop_files(dngs, errors="skip")
+    got = eng.develop_files(dngs)
+    assert not old & _worker_pids(eng)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_a_collected_engine_leaves_no_worker_and_no_slot(dngs):
+    """Once the engine is collected its workers have exited and every
+    shared-memory block of its pool, the workers' included, is unlinked."""
+    import gc
+    import glob
+
+    eng = BatchEngine(devices=["cpu"], max_batch=2, decode_workers=2)
+    eng.develop_files(dngs)
+    pids, prefix = _worker_pids(eng), eng._decode.prefix
+    assert len(glob.glob(f"/dev/shm/{prefix}*")) == len(eng._decode.slots) > 0
+    del eng
+    gc.collect()
+    assert glob.glob(f"/dev/shm/{prefix}*") == []
+    for pid in pids:
+        with pytest.raises(ProcessLookupError):
+            os.kill(pid, 0)
+
+
+def test_an_engine_made_in_another_process_refuses_to_decode(dngs):
+    """A process forked after the engine was made does not reach the
+    parent's pool: `develop_files` raises rather than wait on it."""
+    eng = BatchEngine(devices=["cpu"], max_batch=2, decode_workers=1)
+    eng._decode.pid += 1
+    with pytest.raises(RuntimeError, match="make an engine in this process"):
+        eng.develop_files(dngs)
+
+
+def test_a_process_that_multiprocessing_started_exits_with_its_engine_alive(dngs):
+    """multiprocessing ends a process it started by joining that process's
+    children, and runs no `atexit` hook: the engine's pool closes first, so
+    a process that ends with an engine still alive exits."""
+    import multiprocessing
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_fleet
+
+    proc = multiprocessing.get_context("spawn").Process(target=torch_fleet.develop_and_keep,
+                                                        args=(dngs,))
+    proc.start()
+    proc.join(60)
+    hung = proc.is_alive()
+    if hung:
+        proc.kill()
+        proc.join()
+    assert not hung and proc.exitcode == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profiled", [False, True], ids=["plain", "profiler"])
+def test_batch_engine_card_decode_pool_matches_develop_sources(dngs, profiled):
+    """On the card the pool is forked from a process that holds a CUDA
+    context, once under an open profiler (CPU and CUDA activity) that the
+    engine is made in: both passes bit-equal to `develop_sources` on the
+    same files decoded here, every file through a slot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the fork from a CUDA context")
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagepipe_tpu_torch.decode import decode_file
+
+    torch.zeros(1, device="cuda:0")
+    kw = dict(devices=["cuda:0"], max_batch=2, decode_workers=2)
+    want = BatchEngine(**kw).develop_sources([decode_file(p) for p in dngs])
+    with contextlib.ExitStack() as stack:
+        if profiled:
+            stack.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA]))
+            profiling.reset()
+        eng = BatchEngine(**kw)
+        passes = [eng.develop_files(dngs) for _ in range(2)]
+        counts = profiling.counters()
+    profiling.reset()
+    for got in passes:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    if profiled:
+        assert counts["batch.decode_slots"] == 2 * len(dngs)
 
 
 # -- the batched kernels' wrappers and the eager batch --------------------

@@ -8,6 +8,10 @@ collide), develops `paths` with errors="skip" and then with errors="raise",
 and writes what it got to `out_dir/rank{rank}.npz` (the skip run's results;
 an undecodable slot as an empty array) and `out_dir/rank{rank}.json` (the
 exception the raise run ended in, as its type and message).
+
+`develop_and_keep(paths)` develops `paths` once and returns with the engine
+still alive, held by a module global, so that the process ends with its
+decode pool open.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import os
 import numpy as np
 
 TIMEOUT = datetime.timedelta(seconds=60)
+_kept = []
 
 
 def run_rank(rank: int, world: int, store: str, paths: list, out_dir: str) -> None:
@@ -44,3 +49,10 @@ def run_rank(rank: int, world: int, store: str, paths: list, out_dir: str) -> No
             json.dump({"rank": eng.rank, "world": eng.world, "raised": raised}, f)
     finally:
         dist.destroy_process_group()
+
+
+def develop_and_keep(paths: list) -> None:
+    from imagepipe_tpu_torch.parallel import BatchEngine
+
+    _kept.append(BatchEngine(devices=["cpu"], decode_workers=2, max_batch=4))
+    _kept[-1].develop_files(paths)
